@@ -1,8 +1,9 @@
-"""Full benchmark suite: all five BASELINE.json measurement configs.
+"""Full benchmark suite: the BASELINE.json measurement configs on the GPU.
 
-Writes BENCHMARKS.md at the repo root with measured numbers on the local
-accelerator.  (The driver-facing ``bench.py`` at the repo root stays a single
-JSON line; this suite is the human-facing detail.)
+Prints one JSON line per row and writes them all to
+``chiprun_out/full_bench.json``.  Every permutation row is oracle-gated on
+sampled lanes before it is timed; every timing window ends in
+``block_until_ready``.  Refuses to run without a GPU.
 
 Run: ``python bench/full_bench.py [--quick]``
 """
@@ -15,24 +16,26 @@ import pathlib
 import sys
 import time
 
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "bench"))
 
-import numpy as np
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
 
-import jax
-import jax.numpy as jnp
-
-sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent))
-from _harness import timed_best
-
-
-def sync(x):
-    return np.asarray(x.reshape(-1)[:4])
+from _harness import (  # noqa: E402
+    card_info,
+    check_lanes,
+    random_mont_plane,
+    require_gpu,
+    time_perms,
+    timed_best,
+)
 
 
 def bench_parity():
     """Config 1: single-state absorb/squeeze parity vs ark-sponge vectors."""
-    from sponge_tpu import BLS12_381_FR, Fp, PoseidonSponge, get_default_poseidon_parameters
+    from sponge_jax import BLS12_381_FR, Fp, PoseidonSponge, get_default_poseidon_parameters
 
     cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
     s = PoseidonSponge(cfg, batch_size=1)
@@ -47,294 +50,49 @@ def bench_parity():
             "value": "bit-exact" if out == golden else "MISMATCH", "unit": ""}
 
 
-def bench_kernel_parity():
-    """Random-state parity of BOTH compiled Pallas kernels vs the scalar oracle
-    (the same gate bench.py applies before reporting its number)."""
-    import bench as root_bench
-    from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
+def bench_permutation(cfg, label, log_batch, reps=6):
+    """Batched permutation throughput, oracle-gated on 64 sampled lanes."""
+    from sponge_jax.poseidon.permutation import batched_permute
 
-    if jax.default_backend() != "tpu":
-        return {"name": "compiled-kernel random-state parity vs oracle",
-                "value": "skipped (not on TPU; XLA tier covered by tests/)",
-                "unit": ""}
-    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
-    lanes = root_bench.PARITY_LANES
-    vals = root_bench._random_state_ints(cfg, lanes)
-    state = np.stack(
-        [cfg.field.ints_to_mont_plane(row) for row in vals], axis=0
-    ).astype(np.int32)
-    root_bench.parity_gate(cfg, jnp.asarray(state), vals)  # raises on mismatch
-    return {"name": "compiled-kernel random-state parity vs oracle "
-            f"(cios + pallas, {root_bench.PARITY_SAMPLE} lanes each)",
-            "value": "bit-exact", "unit": ""}
-
-
-def bench_batched_permutation(log_batch=20, reps=6, limb13=False):
-    """Config 3: batched permutation throughput, 2^20 states per chip.
-
-    ``limb13=True`` measures the production 13-bit/L=20 flagship plan
-    (docs/DESIGN.md §25, the plan bench.py ships); the default 12-bit row is
-    kept for the API-default field object.
-    """
-    from sponge_tpu import (
-        BLS12_381_FR,
-        BLS12_381_FR_L13,
-        get_default_poseidon_parameters,
-    )
-    from sponge_tpu.poseidon.permutation import batched_permute, zero_state
-
-    fs = BLS12_381_FR_L13 if limb13 else BLS12_381_FR
-    cfg = get_default_poseidon_parameters(fs, 2, False)
     B = 1 << log_batch
-    state0 = batched_permute(cfg, zero_state(cfg, B))
-
-    def _window():
-        out = state0
-        sync(out)
-        t0 = time.time()
-        for _ in range(reps):
-            out = batched_permute(cfg, out)
-        sync(out)
-        return reps * B / (time.time() - t0)
-
-    rate = timed_best(_window)
-    plan = "13-bit/L=20 plan" if limb13 else "12-bit/L=22 plan"
-    return {"name": f"batched permutation (BLS12-381 Fr rate-2, B=2^{log_batch}, {plan})",
-            "value": round(rate), "unit": "perms/s"}
-
-
-def bench_poseidon2(log_batch=20, reps=6):
-    """Additive capability: Poseidon2 rate-2 permutation throughput (REDC-free
-    linear layers; ops/pallas_p2.py).  Parity-gated on TPU: random lanes are
-    checked against the scalar oracle before timing."""
-    from sponge_tpu import BLS12_381_FR, OraclePoseidon2Sponge, get_default_poseidon2_parameters
-    from sponge_tpu.poseidon2.permutation import batched_permute2
-
-    import bench as root_bench
-
-    cfg = get_default_poseidon2_parameters(BLS12_381_FR, 2)
-    fs = cfg.field
-    B = 1 << log_batch
-    state_np = np.zeros((cfg.t, fs.nlimbs, B), dtype=np.int32)
-    vals = None
-    if jax.default_backend() == "tpu":
-        lanes = 512
-        vals = root_bench._random_state_ints(cfg, lanes, seed=20260817)
-        state_np[:, :, :lanes] = np.stack(
-            [fs.ints_to_mont_plane(row) for row in vals], axis=0
-        )
-    out = batched_permute2(cfg, jnp.asarray(state_np))
-    if vals is not None:
-        out_np = np.asarray(out[:, :, :512])
-        for b in range(0, 512, 61):
-            o = OraclePoseidon2Sponge(cfg)
-            o.state = [vals[i][b] for i in range(cfg.t)]
-            o.permute()
-            got = [fs.mont_limbs_to_int(out_np[i][:, b]) for i in range(cfg.t)]
-            if got != o.state:
-                raise RuntimeError(f"Poseidon2 kernel parity failure at lane {b}")
-    first = out
-
-    def _window():
-        cur = first
-        sync(cur)
-        t0 = time.time()
-        for _ in range(reps):
-            cur = batched_permute2(cfg, cur)
-        sync(cur)
-        return reps * B / (time.time() - t0)
-
-    pps = timed_best(_window)
-    return {"name": "Poseidon2 rate-2 permutation (BLS12-381 Fr, B=2^%d, oracle-gated)" % log_batch,
-            "value": int(pps), "unit": "perms/s"}
-
-
-def bench_goldilocks(log_batch=20, reps=6):
-    """Additive capability: Goldilocks rate-8 (t=12, capacity 4) throughput —
-    6-limb elements, 64 hashed bytes per permutation.  Oracle-gated on TPU."""
-    from sponge_tpu import GOLDILOCKS_FR as GL, get_default_poseidon_parameters
-    from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-    from sponge_tpu.poseidon.permutation import batched_permute
-
-    cfg = get_default_poseidon_parameters(GL, 8)
-    B = 1 << log_batch
-    state_np = np.zeros((cfg.t, GL.nlimbs, B), dtype=np.int32)
-    vals = None
-    if jax.default_backend() == "tpu":
-        rng = np.random.default_rng(20260817)
-        lanes = 256
-        vals = [
-            [int(v) % GL.modulus for v in rng.integers(0, 1 << 62, size=lanes)]
-            for _ in range(cfg.t)
-        ]
-        state_np[:, :, :lanes] = np.stack(
-            [GL.ints_to_mont_plane(row) for row in vals], axis=0
-        )
-    out = batched_permute(cfg, jnp.asarray(state_np))
-    if vals is not None:
-        out_np = np.asarray(out[:, :, :256])
-        for b in range(0, 256, 51):
-            o = OraclePoseidonSponge(cfg)
-            o.state = [vals[i][b] for i in range(cfg.t)]
-            o.permute()
-            got = [GL.mont_limbs_to_int(out_np[i][:, b]) for i in range(cfg.t)]
-            if got != o.state:
-                raise RuntimeError(f"Goldilocks kernel parity failure at lane {b}")
-    first = out
-
-    def _window():
-        cur = first
-        sync(cur)
-        t0 = time.time()
-        for _ in range(reps):
-            cur = batched_permute(cfg, cur)
-        sync(cur)
-        return reps * B / (time.time() - t0)
-
-    pps = timed_best(_window)
-    return {"name": "Goldilocks rate-8 permutation (t=12, B=2^%d, oracle-gated)" % log_batch,
-            "value": int(pps), "unit": "perms/s"}
-
-
-def bench_babybear_p2(log_batch=20, reps=6):
-    """Additive capability: BabyBear Poseidon2 rate-8 (t=16) — the framework's
-    highest-throughput permutation (REDC-free linear layers over 3-limb
-    elements).  Oracle-gated on TPU."""
-    from sponge_tpu import BABYBEAR_FR as BB, OraclePoseidon2Sponge, get_default_poseidon2_parameters
-    from sponge_tpu.poseidon2.permutation import batched_permute2
-
-    cfg = get_default_poseidon2_parameters(BB, 8)
-    B = 1 << log_batch
-    state_np = np.zeros((cfg.t, BB.nlimbs, B), dtype=np.int32)
-    vals = None
-    if jax.default_backend() == "tpu":
-        rng = np.random.default_rng(7)
-        lanes = 256
-        vals = [
-            [int(v) % BB.modulus for v in rng.integers(0, 1 << 62, size=lanes)]
-            for _ in range(cfg.t)
-        ]
-        state_np[:, :, :lanes] = np.stack(
-            [BB.ints_to_mont_plane(row) for row in vals], axis=0
-        )
-    out = batched_permute2(cfg, jnp.asarray(state_np))
-    if vals is not None:
-        out_np = np.asarray(out[:, :, :256])
-        for b in range(0, 256, 51):
-            o = OraclePoseidon2Sponge(cfg)
-            o.state = [vals[i][b] for i in range(cfg.t)]
-            o.permute()
-            got = [BB.mont_limbs_to_int(out_np[i][:, b]) for i in range(cfg.t)]
-            if got != o.state:
-                raise RuntimeError(f"BabyBear Poseidon2 parity failure at lane {b}")
-    first = out
-
-    def _window():
-        cur = first
-        sync(cur)
-        t0 = time.time()
-        for _ in range(reps):
-            cur = batched_permute2(cfg, cur)
-        sync(cur)
-        return reps * B / (time.time() - t0)
-
-    pps = timed_best(_window)
-    return {"name": "BabyBear Poseidon2 rate-8 permutation (t=16, B=2^%d, oracle-gated)" % log_batch,
-            "value": int(pps), "unit": "perms/s"}
-
-
-def bench_bn254(log_batch=17, reps=4):
-    """Config 2: BN254 Fr parameterization (rate 3, alpha=5) throughput."""
-    from sponge_tpu import BN254_FR, get_default_poseidon_parameters
-    from sponge_tpu.poseidon.permutation import batched_permute, zero_state
-
-    cfg = get_default_poseidon_parameters(BN254_FR, 3, False)
-    B = 1 << log_batch
-    state0 = batched_permute(cfg, zero_state(cfg, B))
-
-    def _window():
-        out = state0
-        sync(out)
-        t0 = time.time()
-        for _ in range(reps):
-            out = batched_permute(cfg, out)
-        sync(out)
-        return reps * B / (time.time() - t0)
-
-    rate = timed_best(_window)
-    return {"name": f"BN254 Fr rate-3 alpha=5 permutation (B=2^{log_batch})",
+    state = random_mont_plane(cfg.field, (cfg.t, B), seed=log_batch)
+    out = batched_permute(cfg, state)
+    check_lanes(cfg, state, out, n=64, label=label)
+    rate = time_perms(lambda s: batched_permute(cfg, s), out, B, iters=reps)
+    return {"name": f"{label} permutation (B=2^{log_batch}, oracle-gated)",
             "value": round(rate), "unit": "perms/s"}
 
 
 def bench_merkle(log_leaves=24):
     """Config 4: 2-to-1 Poseidon Merkle tree over 2^24 leaves."""
-    from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-    from sponge_tpu.hash import merkle_root
+    from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+    from sponge_jax.hash import merkle_root
 
     cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
     N = 1 << log_leaves
-    leaves = jnp.zeros((BLS12_381_FR.nlimbs, N), dtype=jnp.int32)
-    root = merkle_root(cfg, leaves)  # warm-up / compile
-    np.asarray(root[:2])
+    leaves = random_mont_plane(BLS12_381_FR, (N,), seed=4)
+    jax.block_until_ready(merkle_root(cfg, leaves))  # warm-up / compile
 
     def _window():
-        t0 = time.time()
-        r = merkle_root(cfg, leaves)
-        np.asarray(r[:2])
-        return N / (time.time() - t0)
+        t0 = time.perf_counter()
+        jax.block_until_ready(merkle_root(cfg, leaves))
+        return N / (time.perf_counter() - t0)
 
-    rate = timed_best(_window)
     return {"name": f"Merkle tree, 2^{log_leaves} leaves (2-to-1, one perm/node)",
-            "value": round(rate), "unit": "leaves/s"}
+            "value": round(timed_best(_window)), "unit": "leaves/s"}
 
 
-def bench_transcript(batch=1 << 14, reps=3):
-    """Config 5: mixed Fiat-Shamir transcript through the DEFAULT sponge
-    (segment-batched lazy dispatch since round 3: absorbs queue host-side,
-    one fused jitted segment per squeeze), batched over independent lanes."""
-    from sponge_tpu import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
-    from sponge_tpu.poseidon.permutation import batched_permute
-    from sponge_tpu.sponge import PoseidonSponge
-    from sponge_tpu import Fp, U64
+def bench_transcript(batch=1 << 14, reps=3, lazy=True):
+    """Config 5: mixed Fiat-Shamir transcript through ``PoseidonSponge``
+    (``lazy=True``: absorbs queue host-side, one fused segment per squeeze;
+    ``lazy=False``: several small device dispatches per duplex step)."""
+    from sponge_jax import U64, BLS12_381_FR, Fp, get_default_poseidon_parameters
+    from sponge_jax.sponge import PoseidonSponge
 
     cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
 
     def one_pass():
-        s = PoseidonSponge(cfg, batch_size=batch)
-        s.absorb(b"transcript-header")
-        s.absorb(U64(1))
-        s.absorb([Fp(12345, BLS12_381_FR), Fp(67890, BLS12_381_FR)])
-        s.squeeze_native_plane(2)
-        s.absorb(U64(2))
-        out = s.squeeze_native_plane(1)
-        return out
-
-    sync(one_pass())  # warm-up / compile
-
-    def _window():
-        t0 = time.time()
-        for _ in range(reps):
-            out = one_pass()
-        sync(out)
-        return batch * reps / (time.time() - t0)
-
-    rate = timed_best(_window)
-    return {"name": f"Fiat-Shamir transcript (5 steps, B={batch} lanes, lazy default)",
-            "value": round(rate), "unit": "transcripts/s"}
-
-
-def bench_lazy_transcript(batch=1 << 14, reps=3):
-    """Config 5 (eager escape hatch): same 5-step transcript with
-    ``lazy=False`` — several small device dispatches per duplex step; kept
-    measured so the default's advantage stays an in-tree number."""
-    from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-    from sponge_tpu.sponge import PoseidonSponge
-    from sponge_tpu import Fp, U64
-
-    cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
-
-    def one_pass():
-        s = PoseidonSponge(cfg, batch_size=batch, lazy=False)
+        s = PoseidonSponge(cfg, batch_size=batch, lazy=lazy)
         s.absorb(b"transcript-header")
         s.absorb(U64(1))
         s.absorb([Fp(12345, BLS12_381_FR), Fp(67890, BLS12_381_FR)])
@@ -342,50 +100,48 @@ def bench_lazy_transcript(batch=1 << 14, reps=3):
         s.absorb(U64(2))
         return s.squeeze_native_plane(1)
 
-    sync(one_pass())  # warm-up / compile
+    jax.block_until_ready(one_pass())  # warm-up / compile
 
     def _window():
-        t0 = time.time()
+        t0 = time.perf_counter()
         for _ in range(reps):
             out = one_pass()
-        sync(out)
-        return batch * reps / (time.time() - t0)
+        jax.block_until_ready(out)
+        return batch * reps / (time.perf_counter() - t0)
 
-    rate = timed_best(_window)
-    return {"name": f"eager step-by-step transcript (same 5 steps, lazy=False)",
-            "value": round(rate), "unit": "transcripts/s"}
+    mode = "lazy default" if lazy else "eager, lazy=False"
+    return {"name": f"Fiat-Shamir transcript (5 steps, B={batch} lanes, {mode})",
+            "value": round(timed_best(_window)), "unit": "transcripts/s"}
 
 
 def bench_compiled_transcript(batch=1 << 17, reps=5):
-    """Config 5 (fast path): the same 5-step transcript as ONE fused program."""
-    from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-    from sponge_tpu.transcript import Absorb, SqueezeNative, compile_transcript
+    """Config 5 (fast path): the same transcript as ONE fused program."""
+    from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+    from sponge_jax.transcript import Absorb, SqueezeNative, compile_transcript
 
     cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
     schedule = [Absorb(3), SqueezeNative(2), Absorb(1), SqueezeNative(1)]
     fn = compile_transcript(cfg, schedule)
     elems = jnp.zeros((4, BLS12_381_FR.nlimbs, batch), dtype=jnp.int32)
-    out = fn(elems)
-    sync(out)
+    jax.block_until_ready(fn(elems))
 
     def _window():
-        t0 = time.time()
+        t0 = time.perf_counter()
         for _ in range(reps):
             o = fn(elems)
-        sync(o)
-        return batch * reps / (time.time() - t0)
+        jax.block_until_ready(o)
+        return batch * reps / (time.perf_counter() - t0)
 
-    rate = timed_best(_window)
-    return {"name": f"compiled Fiat-Shamir transcript (4 steps fused, B=2^17)",
-            "value": round(rate), "unit": "transcripts/s"}
+    return {"name": f"compiled Fiat-Shamir transcript (4 steps fused, B={batch})",
+            "value": round(timed_best(_window)), "unit": "transcripts/s"}
 
 
 def bench_host_runtime(reps=3000):
     """Host (CPU, single-thread) native C++ tier: the verifier-side path where a
     device dispatch round trip dwarfs the arithmetic.  Parity-gated by
     tests/test_host_runtime.py (oracle-exact)."""
-    from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-    from sponge_tpu.poseidon.host import host_available, host_run_schedule
+    from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+    from sponge_jax.poseidon.host import host_available, host_run_schedule
 
     cfg = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
     if not host_available(cfg):
@@ -394,10 +150,10 @@ def bench_host_runtime(reps=3000):
     steps = [("absorb", 3), ("squeeze", 2), ("absorb", 1), ("squeeze", 1)]
     elems = [12345, 67890, 424242, 777]
     host_run_schedule(cfg, steps, elems)  # build + table warm-up
-    t0 = time.time()
+    t0 = time.perf_counter()
     for _ in range(reps):
         host_run_schedule(cfg, steps, elems)
-    rate = reps / (time.time() - t0)
+    rate = reps / (time.perf_counter() - t0)
     return {"name": "native host transcript (4 steps, C++ single-thread)",
             "value": round(rate), "unit": "transcripts/s"}
 
@@ -406,53 +162,38 @@ def main():
     parser = argparse.ArgumentParser()
     parser.add_argument("--quick", action="store_true", help="smaller shapes")
     args = parser.parse_args()
+    require_gpu()
 
-    from sponge_tpu.utils.jaxcache import configure_cache
+    import sponge_jax as sj
+    from sponge_jax.utils.jaxcache import configure_cache
 
-    configure_cache("/tmp/sponge_tpu_jax_cache")
-
-    rows = []
-    rows.append(bench_parity())
-    rows.append(bench_kernel_parity())
-    rows.append(bench_batched_permutation(14 if args.quick else 20))
-    rows.append(bench_batched_permutation(14 if args.quick else 20, limb13=True))
-    rows.append(bench_poseidon2(14 if args.quick else 20))
-    rows.append(bench_goldilocks(14 if args.quick else 20))
-    rows.append(bench_babybear_p2(14 if args.quick else 20))
-    rows.append(bench_bn254(12 if args.quick else 17))
-    rows.append(bench_merkle(14 if args.quick else 24))
-    rows.append(bench_transcript(1 << (10 if args.quick else 14)))
-    rows.append(bench_lazy_transcript(1 << (10 if args.quick else 14)))
-    rows.append(bench_compiled_transcript(1 << (12 if args.quick else 17)))
-    rows.append(bench_host_runtime(500 if args.quick else 3000))
-
-    dev = str(jax.devices()[0])
-    lines = [
-        "# Measured benchmarks",
-        "",
-        f"Device: {dev}.  Produced by `python bench/full_bench.py`"
-        + (" --quick" if args.quick else "") + ".",
-        "",
-        "| Workload (BASELINE.json config) | Result | Unit |",
-        "|---|---|---|",
+    configure_cache()
+    q = args.quick
+    perm_rows = [
+        (sj.get_default_poseidon_parameters(sj.BLS12_381_FR, 2), "BLS12-381 Fr rate-2, 12-bit/L=22"),
+        (sj.get_default_poseidon_parameters(sj.BLS12_381_FR_L13, 2), "BLS12-381 Fr rate-2, 13-bit/L=20"),
+        (sj.get_default_poseidon_parameters(sj.BN254_FR, 3), "BN254 Fr rate-3"),
+        (sj.get_default_poseidon2_parameters(sj.BLS12_381_FR, 2), "Poseidon2 BLS12-381 Fr rate-2"),
+        (sj.get_default_poseidon_parameters(sj.GOLDILOCKS_FR, 8), "Goldilocks rate-8 (t=12)"),
+        (sj.get_default_poseidon2_parameters(sj.BABYBEAR_FR, 8), "Poseidon2 BabyBear rate-8 (t=16)"),
     ]
+    rows = [bench_parity()]
+    rows += [bench_permutation(cfg, label, 14 if q else 20) for cfg, label in perm_rows]
+    rows.append(bench_merkle(14 if q else 24))
+    rows.append(bench_transcript(1 << (10 if q else 14)))
+    rows.append(bench_transcript(1 << (10 if q else 14), lazy=False))
+    rows.append(bench_compiled_transcript(1 << (12 if q else 17)))
+    rows.append(bench_host_runtime(500 if q else 3000))
+
+    dev = jax.devices()[0]
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices()), "card": card_info()}
     for r in rows:
-        lines.append(f"| {r['name']} | {r['value']} | {r['unit']} |")
+        r["device"] = device
         print(json.dumps(r))
-    # --quick numbers are smoke-test scale; don't clobber the real table.
-    name = "BENCHMARKS_quick.md" if args.quick else "BENCHMARKS.md"
-    out = pathlib.Path(__file__).resolve().parent.parent / name
-    # Everything from the marker down is probe-measured content maintained
-    # by the family/kernel probes (bench/*_probe.py) — full_bench owns only
-    # the main table above it and must preserve the rest across rewrites.
-    marker = "<!-- probe-measured sections below: full_bench preserves from here -->"
-    tail = ""
-    if out.exists():
-        old = out.read_text()
-        if marker in old:
-            tail = old[old.index(marker):]
-    out.write_text("\n".join(lines) + "\n\n" + (tail or marker + "\n"))
-    print("wrote", out)
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / "full_bench.json").write_text(json.dumps(rows, indent=1))
 
 
 if __name__ == "__main__":

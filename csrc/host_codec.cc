@@ -1,7 +1,7 @@
 // Native host-side codec: canonical byte values <-> Montgomery 12-bit limb planes.
 //
-// The TPU framework stores field elements as 22 x 12-bit limbs in int32 planes
-// (see sponge_tpu/fields.py).  Converting between canonical integers and
+// The framework stores field elements as 22 x 12-bit limbs in int32 planes
+// (see sponge_jax/fields.py).  Converting between canonical integers and
 // Montgomery-form limbs requires one modular multiplication per element
 // (by R^2 mod p, resp. by 1) — pure host work that gates absorb/decode
 // throughput for large batches when done in Python.  This file implements the

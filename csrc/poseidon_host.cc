@@ -1,7 +1,7 @@
 // Native host-side Poseidon permutation: scalar 4x64-bit Montgomery CIOS.
 //
 // The reference sponge is consumed on CPUs (Fiat-Shamir verifiers, proof
-// checks, small transcripts) where a TPU dispatch round trip dwarfs the work;
+// checks, small transcripts) where a device dispatch round trip dwarfs the work;
 // the framework's pure-python oracle is bit-exact but ~1000x slower than the
 // reference's ark-ff Montgomery backend.  This file is the host-runtime
 // equivalent of that backend (/root/reference/src/test.rs:10 uses
@@ -11,7 +11,7 @@
 // 0 only), R_F/2 full rounds.
 //
 // All values cross the ABI in Montgomery form (R = 2^256) as 4 x 64-bit
-// little-endian words; the Python wrapper (sponge_tpu/utils/native.py)
+// little-endian words; the Python wrapper (sponge_jax/utils/native.py)
 // performs the canonical <-> Montgomery conversion.
 //
 // Build: c++ -O3 -shared -fPIC -o libposeidonhost.so poseidon_host.cc
@@ -171,7 +171,7 @@ struct PoseidonCtx {
   const u64* ark;  // (R * t * NW) words, Montgomery form
   const u64* mds;  // (t * t * NW) words, Montgomery form
   // Optional sparse-MDS optimized partial-round tables (nullable; exact
-  // algebraic identity — see sponge_tpu/poseidon/optimized.py).  Packed:
+  // algebraic identity — see sponge_jax/poseidon/optimized.py).  Packed:
   // c_first (t) ‖ constants ((k-1)*t) ‖ row0 ((k-1)*t) ‖ col0 ((k-1)*(t-1))
   // ‖ dense (t*t), each element NW u64 Montgomery words.
   const u64* opt;
@@ -210,7 +210,7 @@ inline void one_round(const PoseidonCtx& c, int r, bool full, u64* st,
 
 // Optimized partial-round chain (bit-identical to the naive rounds): element-0
 // S-box between sparse matrices, one trailing dense matrix.  Mirrors
-// eval_partial_chain_optimized in sponge_tpu/poseidon/optimized.py.
+// eval_partial_chain_optimized in sponge_jax/poseidon/optimized.py.
 inline void partial_chain_opt(const PoseidonCtx& c, u64* st, u64* scratch) {
   const int t = c.t;
   const int k = c.partial_rounds;
@@ -340,7 +340,7 @@ inline void mont_pow_wide(const FieldCtx64& f, const u64* x, const u64* exp,
   std::memcpy(out, acc, sizeof(acc));
 }
 
-// Rescue-Prime tables (ePrint 2020/1143 §2.4; see sponge_tpu/rescue).
+// Rescue-Prime tables (ePrint 2020/1143 §2.4; see sponge_jax/rescue).
 struct RescueTables {
   const u64* rc;         // (2 * rounds * t * NW) words, Montgomery
   const u64* mds;        // (t * t * NW) words, Montgomery
@@ -350,7 +350,7 @@ struct RescueTables {
 };
 
 // Monolith tables (ePrint 2023/1025 structure; see
-// sponge_tpu/monolith/config.py).  Only bar-safe fields with p < 2^64 are
+// sponge_jax/monolith/config.py).  Only bar-safe fields with p < 2^64 are
 // dispatched here (the Python wrapper gates), so a canonical value fits one
 // u64 word and Bars run on it directly.
 struct MonolithTables {
@@ -362,7 +362,7 @@ struct MonolithTables {
   int32_t n_bits;   // modulus bit length
   int32_t bar_m;    // m of p = 2^n - 2^m + 1: extra chunk boundary when not
                     // byte-aligned (0/1 = no extra boundary); mirrors
-                    // sponge_tpu/monolith/config.bar_chunks exactly
+                    // sponge_jax/monolith/config.bar_chunks exactly
 };
 
 // The chi-like k-bit chunk S-box (config.chunk_sbox semantics).
@@ -380,7 +380,7 @@ inline u64 chi_chunk(u64 y, int k) {
 
 // Bar on a canonical value < p < 2^64: S-box 8-bit chunks with an extra
 // boundary at bar_m when it is not byte-aligned (the same chunk loop as
-// sponge_tpu/monolith/config.bar_chunks).
+// sponge_jax/monolith/config.bar_chunks).
 inline u64 bar_u64(u64 x, int n_bits, int bar_m) {
   u64 out = 0;
   int bit = 0;
@@ -471,7 +471,7 @@ inline void permute_one_rescue(const PoseidonCtx& c, u64* st, u64* scratch) {
   }
 }
 
-// Griffin tables (ePrint 2022/403 structure; see sponge_tpu/griffin).
+// Griffin tables (ePrint 2022/403 structure; see sponge_jax/griffin).
 struct GriffinTables {
   const u64* rc;         // ((rounds-1) * t * NW) words, Montgomery
   const int32_t* mat_e;  // (t * t) small plain ints (Poseidon2's matrices)
@@ -483,7 +483,7 @@ struct GriffinTables {
 };
 
 // Griffin-pi permutation (ePrint 2022/403; structure documented in
-// sponge_tpu/griffin/config.py): initial linear layer, then R rounds of
+// sponge_jax/griffin/config.py): initial linear layer, then R rounds of
 // nonlinear layer (y0 = x0^(1/d), y1 = x1^d, quadratic-gated multiplicative
 // elements reading the ORIGINAL x_{i-1}) / linear layer / rc add (except the
 // last round).
@@ -519,7 +519,7 @@ inline void permute_one_griffin(const PoseidonCtx& c, u64* st, u64* scratch) {
   }
 }
 
-// Anemoi tables (ePrint 2022/840 structure; see sponge_tpu/anemoi).
+// Anemoi tables (ePrint 2022/840 structure; see sponge_jax/anemoi).
 // State is two columns X = st[0..l), Y = st[l..2l); the open Flystel mixes
 // one wide inverse power map with two quadratics in the generator g.
 struct AnemoiTables {
@@ -595,7 +595,7 @@ inline void permute_one_anemoi(const PoseidonCtx& c, u64* st, u64* scratch) {
   anemoi_diffusion(c, st, scratch);
 }
 
-// GMiMC-erf tables (ePrint 2019/397 structure; see sponge_tpu/gmimc).
+// GMiMC-erf tables (ePrint 2019/397 structure; see sponge_jax/gmimc).
 struct GmimcTables {
   const u64* rc;  // (rounds * NW) words, Montgomery form
   int32_t rounds;

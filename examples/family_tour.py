@@ -15,12 +15,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
 import jax
 
-# An API tour, not a benchmark: interactive small-batch sponges are
-# host-latency-bound, so run on CPU and skip accelerator compile time
-# (see fiat_shamir.py / merkle_commitment.py for the device paths).
-jax.config.update("jax_platforms", "cpu")
-
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     GOLDILOCKS_FR,
     KOALABEAR_FR,

@@ -8,7 +8,7 @@ downstream use in marlin/fractal):
              accelerator (one compiled device program for the whole schedule);
   verifier : a single transcript replayed on CPU in one native call.
 
-Run: python examples/fiat_shamir.py   (CPU-safe; uses the TPU when present)
+Run: python examples/fiat_shamir.py   (CPU-safe; uses the GPU when present)
 """
 
 import pathlib
@@ -20,10 +20,10 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from sponge_tpu import BLS12_381_FR as FR, get_default_poseidon_parameters
-from sponge_tpu.poseidon.host import host_available, host_run_schedule
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.transcript import Absorb, SqueezeNative, compile_transcript
+from sponge_jax import BLS12_381_FR as FR, get_default_poseidon_parameters
+from sponge_jax.poseidon.host import host_available, host_run_schedule
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.transcript import Absorb, SqueezeNative, compile_transcript
 
 cfg = get_default_poseidon_parameters(FR, rate=2)
 

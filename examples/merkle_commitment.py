@@ -4,7 +4,7 @@ indices in one fused gather program, verify the batch in one device program.
 This is the STARK/FRI commitment shape: commit to 2^k leaves, the verifier
 samples q random indices, the prover opens all q paths at once.
 
-Run: python examples/merkle_commitment.py   (CPU-safe; uses the TPU when present)
+Run: python examples/merkle_commitment.py   (CPU-safe; uses the GPU when present)
 """
 
 import pathlib
@@ -17,8 +17,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from sponge_tpu import GOLDILOCKS_FR as F, get_default_monolith_parameters
-from sponge_tpu.hash import (
+from sponge_jax import GOLDILOCKS_FR as F, get_default_monolith_parameters
+from sponge_jax.hash import (
     merkle_open_batch,
     merkle_root,
     merkle_tree,

@@ -33,7 +33,7 @@ def main():
 
     jax.config.update("jax_platforms", "cpu")
 
-    from sponge_tpu.parallel.multihost import global_mesh, initialize
+    from sponge_jax.parallel.multihost import global_mesh, initialize
 
     initialize(coordinator, num_processes, process_id)
     assert jax.process_count() == num_processes, jax.process_count()
@@ -46,9 +46,9 @@ def main():
     from jax import shard_map
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from sponge_tpu import GOLDILOCKS_FR, get_default_poseidon_parameters
-    from sponge_tpu.parallel.mesh import DATA_AXIS
-    from sponge_tpu.poseidon.permutation import batched_permute
+    from sponge_jax import GOLDILOCKS_FR, get_default_poseidon_parameters
+    from sponge_jax.parallel.mesh import DATA_AXIS
+    from sponge_jax.poseidon.permutation import batched_permute
 
     cfg = get_default_poseidon_parameters(GOLDILOCKS_FR, 4)
     fs = cfg.field
@@ -99,7 +99,7 @@ def main():
     print(f"[p{process_id}] sharded permute == oracle on {checked} local lanes", flush=True)
 
     # ---- 2) sharded Merkle root across processes == host oracle root ----
-    from sponge_tpu.parallel import sharded_merkle_root
+    from sponge_jax.parallel import sharded_merkle_root
 
     N = 4 * D
     leaf_vals = [int(v) % fs.modulus for v in rng.integers(0, 1 << 62, size=N)]
@@ -128,7 +128,7 @@ def main():
     print(f"[p{process_id}] sharded Merkle root == oracle root", flush=True)
 
     # ---- 3) the parity-gated scaling harness, end to end ----
-    from sponge_tpu.parallel.multihost import scaling_report
+    from sponge_jax.parallel.multihost import scaling_report
 
     report = scaling_report(cfg, batch_per_device=8, reps=1, parity_lanes=8)
     assert report["devices"] == 4 * num_processes

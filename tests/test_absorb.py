@@ -7,7 +7,7 @@ variable-size lists, macros) and absorb.rs semantics over the typed wrappers.
 import numpy as np
 import pytest
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     BN254_FR,
     NONE,
@@ -27,7 +27,7 @@ from sponge_tpu import (
     to_sponge_bytes,
     to_sponge_field_elements,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)

@@ -12,20 +12,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR as FR,
     GOLDILOCKS_FR as GL,
     MERSENNE31_FR as M31,
 )
-from sponge_tpu.anemoi import (
+from sponge_jax.anemoi import (
     AnemoiConfig,
     OracleAnemoiSponge,
     anemoi_default_rounds,
     generate_anemoi_parameters,
     get_default_anemoi_parameters,
 )
-from sponge_tpu.anemoi.permutation import anemoi_permute_jit
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.anemoi.permutation import anemoi_permute_jit
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 CFG = get_default_anemoi_parameters(FR, 1)  # t = 2, the Jive-mode width
 
@@ -142,9 +142,9 @@ def test_xla_tier_small_field_explicit_rounds():
 def test_duplex_sponge_integration():
     """The shared batched duplex sponge runs an AnemoiConfig unmodified via
     the batched_permute dispatch hook (same plug-in path as Poseidon2)."""
-    from sponge_tpu import Batched
-    from sponge_tpu.absorb import Fp
-    from sponge_tpu.sponge import PoseidonSponge
+    from sponge_jax import Batched
+    from sponge_jax.absorb import Fp
+    from sponge_jax.sponge import PoseidonSponge
 
     cfg = get_default_anemoi_parameters(FR, 3)
     B = 2
@@ -176,9 +176,9 @@ def test_sharded_permute_matches_local():
     (VERDICT r2 item 6: Anemoi crossing shard_map)."""
     import jax
 
-    from sponge_tpu import GOLDILOCKS_FR
-    from sponge_tpu.parallel import make_mesh, sharded_permute_fn
-    from sponge_tpu.poseidon.permutation import batched_permute
+    from sponge_jax import GOLDILOCKS_FR
+    from sponge_jax.parallel import make_mesh, sharded_permute_fn
+    from sponge_jax.poseidon.permutation import batched_permute
 
     fs = GOLDILOCKS_FR
     cfg = get_default_anemoi_parameters(fs, 4)
@@ -197,155 +197,22 @@ def test_sharded_permute_matches_local():
     assert np.array_equal(out_sharded, out_local)
 
 
-# ---- fused Pallas kernel body (ops/pallas_anemoi.py) ----
+# ---- XLA tier at small fields ----
 
-def _tiny_headroom_anemoi_config(rate=3, rounds=4):
-    """Anemoi config over a 25-bit, 3-limb field (R/p headroom 2^11): wide
-    enough for the kernel's value fixpoint (PHT adds + l-term diffusion sums
-    amplify values between the contracting products)."""
-    from sponge_tpu.fields import FieldSpec
+from conftest import check_permutation_vs_oracle
+
+
+def _tiny_anemoi_config(rate=3, rounds=4):
+    """Anemoi config over a 25-bit, 3-limb field (cheap to compile)."""
+    from sponge_jax.fields import FieldSpec
 
     fs = FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
     return generate_anemoi_parameters(fs, rate, rounds=rounds)
 
 
-@pytest.mark.parametrize("relaxed", [False, True], ids=["exact", "relaxed"])
-@pytest.mark.parametrize("lane_streams", [1, 2], ids=["1stream", "2streams"])
-def test_anemoi_kernel_body_vs_oracle(lane_streams, relaxed):
-    """The fused kernel body (mock refs, CPU) == the scalar oracle: the
-    l*ns-chain run-length ladder, negated-constant subtractions, rotated
-    diffusion + PHT, exit canonicalization.  rate=3 makes l=2 (real rotation
-    and a 2x2 diffusion matrix)."""
-    import jax
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_anemoi as pa
-    from sponge_tpu.ops.pallas_rescue import _exponent_runs
-
-    cfg = _tiny_headroom_anemoi_config()
-    pa._check_kernel_value_bounds(cfg)
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=101 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    rc_np = np.stack(
-        [
-            np.concatenate(
-                [fs.int_to_mont_limbs(c) for c in rx]
-                + [fs.int_to_mont_limbs(c) for c in ry]
-            )
-            for rx, ry in zip(cfg.rc_x, cfg.rc_y)
-        ]
-    ).astype(np.int32)
-    runs, _ = _exponent_runs(cfg.inv_alpha)
-    runs_np = np.asarray(runs, dtype=np.int32)
-
-    @jax.jit
-    def run(rc, runs_arr, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pa._anemoi_kernel(
-            _FakeRef(rc), _FakeRef(runs_arr), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=lane_streams, relaxed=relaxed,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, runs_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleAnemoiSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert got == o.state, b
-        for i in range(t):
-            assert fs.limbs_to_int(out[i][:, b]) < 2 * fs.modulus
-            assert all(int(v) < (1 << 12) for v in out[i][:, b])
-
-
-@pytest.mark.parametrize("reduce_pht", [False, True], ids=["unreduced", "redpht"])
-def test_anemoi_kernel_single_pair(reduce_pht):
-    """l=1 (rate 1): identity diffusion matrix path, PHT-only mixing.
-
-    The redpht cell exercises the post-PHT Montgomery-by-1 reduction that
-    ``anemoi_permute_fn`` auto-enables when the unreduced value fixpoint
-    diverges (the production t=2 Jive_2 width over 255-bit fields)."""
-    import jax
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_anemoi as pa
-    from sponge_tpu.ops.pallas_rescue import _exponent_runs
-
-    cfg = _tiny_headroom_anemoi_config(rate=1)
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=111 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    rc_np = np.stack(
-        [
-            np.concatenate(
-                [fs.int_to_mont_limbs(c) for c in rx]
-                + [fs.int_to_mont_limbs(c) for c in ry]
-            )
-            for rx, ry in zip(cfg.rc_x, cfg.rc_y)
-        ]
-    ).astype(np.int32)
-    runs, _ = _exponent_runs(cfg.inv_alpha)
-    runs_np = np.asarray(runs, dtype=np.int32)
-
-    @jax.jit
-    def run(rc, runs_arr, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pa._anemoi_kernel(
-            _FakeRef(rc), _FakeRef(runs_arr), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=2, relaxed=True, reduce_pht=reduce_pht,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, runs_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleAnemoiSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        assert [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)] == o.state
-
-
-def test_anemoi_kernel_pallas_call_interpret():
-    """anemoi_permute_fn through pl.pallas_call in interpret mode."""
-    from sponge_tpu.ops.pallas_anemoi import anemoi_permute_fn
-
-    cfg = _tiny_headroom_anemoi_config(rounds=2)
-    fs = cfg.field
-    t, B = cfg.t, 2048
-    vals = [rand_fr(fs, B, seed=121 + i) for i in range(t)]
-    state = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    )
-    out = np.asarray(anemoi_permute_fn(cfg, interpret=True)(state))
-    for b in range(0, B, 511):
-        o = OracleAnemoiSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        assert [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)] == o.state
-
-
-def test_anemoi_kernel_value_gate():
-    """The static value-bound check admits the shipped 255-bit / Goldilocks
-    defaults and the tiny-headroom CI field; the l=1 Jive_2 width diverges
-    unreduced (identity diffusion: no REDC between the PHT adds) and is
-    admitted by the post-PHT-reduction schedule."""
-    from sponge_tpu.ops.pallas_anemoi import _check_kernel_value_bounds
-
-    for shipped in (
-        get_default_anemoi_parameters(FR, 3),
-        get_default_anemoi_parameters(GL, 4),
-        _tiny_headroom_anemoi_config(),
-    ):
-        _check_kernel_value_bounds(shipped)
-
-    jive_width = get_default_anemoi_parameters(FR, 1)  # t = 2, l = 1
-    with pytest.raises(ValueError):
-        _check_kernel_value_bounds(jive_width, False)
-    _check_kernel_value_bounds(jive_width, True)
+@pytest.mark.parametrize("rounds", [2, 4], ids=["r2", "r4"])
+@pytest.mark.parametrize("rate", [1, 3], ids=["one-pair", "two-pairs"])
+def test_xla_tier_tiny_field_vs_oracle(rate, rounds):
+    """The Flystel ladder over one and several column pairs, in the XLA tier
+    (the family's only device tier)."""
+    check_permutation_vs_oracle(_tiny_anemoi_config(rate, rounds))

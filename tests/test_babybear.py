@@ -13,13 +13,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from sponge_tpu import (
+from sponge_jax import (
     BABYBEAR_FR as BB,
     OraclePoseidon2Sponge,
     get_default_poseidon_parameters,
     get_default_poseidon2_parameters,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 CFG = get_default_poseidon_parameters(BB, 8)
 CFG2 = get_default_poseidon2_parameters(BB, 8)
@@ -51,8 +51,8 @@ def test_oracle_golden_regression():
 
 
 def test_xla_tiers_vs_oracle():
-    from sponge_tpu.poseidon.permutation import permute_jit
-    from sponge_tpu.poseidon2.permutation import poseidon2_permute_jit
+    from sponge_jax.poseidon.permutation import permute_jit
+    from sponge_jax.poseidon2.permutation import poseidon2_permute_jit
 
     B = 4
     vals = [rand_bb(B, seed=3 + i) for i in range(16)]
@@ -73,20 +73,15 @@ def test_xla_tiers_vs_oracle():
 
 
 def test_kernel_bodies():
-    """Both fused kernel bodies at L=3, t=16 in CI (CIOS lazy-MDS single
-    group: 16*3 + 2 = 50 < 128; p2 folding at R/p = 34)."""
-    import sys
+    """Both families' XLA tiers at L=3, t=16 on a 128-lane batch."""
+    from conftest import check_permutation_vs_oracle
 
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_pallas_kernels import _run_cios_kernel_body
-    from test_poseidon2 import _run_p2_kernel_body
-
-    _run_cios_kernel_body(CFG, optimized=True, B=128, stride=31)
-    _run_p2_kernel_body(CFG2, B=128, stride=31)
+    check_permutation_vs_oracle(CFG, B=128, stride=31)
+    check_permutation_vs_oracle(CFG2, B=128, stride=31)
 
 
 def test_host_runtime_babybear():
-    from sponge_tpu.poseidon.host import host_available, host_permute_states
+    from sponge_jax.poseidon.host import host_available, host_permute_states
 
     if not host_available(CFG):
         pytest.skip("no C++ toolchain")
@@ -102,7 +97,7 @@ def test_host_runtime_babybear():
 
 def test_wide_digest_merkle_babybear():
     """BabyBear Merkle nodes are 8-element digests (248 bits)."""
-    from sponge_tpu.hash import default_digest_elems, merkle_root_wide
+    from sponge_jax.hash import default_digest_elems, merkle_root_wide
 
     d = default_digest_elems(CFG)
     assert d == 9  # ceil(256/31) — one more element than capacity-8's 248 bits

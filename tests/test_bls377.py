@@ -10,13 +10,13 @@ import math
 
 import numpy as np
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_377_FR,
     PoseidonSponge,
     get_default_poseidon_parameters,
 )
-from sponge_tpu.absorb import Fp, U64
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.absorb import Fp, U64
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 FR = BLS12_377_FR
 

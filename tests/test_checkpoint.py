@@ -5,14 +5,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from sponge_tpu import BLS12_381_FR, Fp, PoseidonSponge, get_default_poseidon_parameters
-from sponge_tpu.checkpoint import (
+from sponge_jax import BLS12_381_FR, Fp, PoseidonSponge, get_default_poseidon_parameters
+from sponge_jax.checkpoint import (
     load_merkle_level,
     load_sponge,
     save_merkle_level,
     save_sponge,
 )
-from sponge_tpu.hash import merkle_root
+from sponge_jax.hash import merkle_root
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)
@@ -49,7 +49,7 @@ def test_merkle_level_checkpoint_resume(tmp_path):
     full_root = merkle_root(CFG, leaves)
 
     # Run two levels, checkpoint, "crash", resume from the snapshot.
-    from sponge_tpu.hash import compress_pairs
+    from sponge_jax.hash import compress_pairs
 
     level = leaves
     for depth in range(2):

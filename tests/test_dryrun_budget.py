@@ -38,7 +38,7 @@ jax.config.update('jax_platforms', 'cpu')
 import sys
 sys.path.insert(0, 'tests')
 from conftest import tiny_poseidon_config
-from sponge_tpu.poseidon.permutation import permute, zero_state
+from sponge_jax.poseidon.permutation import permute, zero_state
 cfg = tiny_poseidon_config()
 out = jax.jit(lambda s: permute(cfg, s))(zero_state(cfg, 64))
 jax.block_until_ready(out)

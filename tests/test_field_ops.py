@@ -1,6 +1,6 @@
 """Batched Montgomery limb-plane kernels vs the python-int oracle.
 
-Kernel-tier ≡ oracle-tier consistency, the TPU analogue of the reference's
+Kernel-tier ≡ oracle-tier consistency, the batched analogue of the reference's
 native↔gadget consistency tests (SURVEY.md §4 category 5).
 """
 
@@ -9,8 +9,8 @@ import pytest
 
 import jax
 
-from sponge_tpu.fields import BLS12_381_FR, BN254_FR, LIMB_BITS
-from sponge_tpu.ops import montgomery as mont
+from sponge_jax.fields import BLS12_381_FR, BN254_FR, LIMB_BITS
+from sponge_jax.ops import montgomery as mont
 
 FIELDS = [BLS12_381_FR, BN254_FR]
 RNG = np.random.default_rng(0)

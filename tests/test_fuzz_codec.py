@@ -4,7 +4,7 @@ oracle.  Exercises the full codec surface through both sponges in one walk."""
 import numpy as np
 import pytest
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     NONE,
     Fp,
@@ -23,7 +23,7 @@ from sponge_tpu import (
     WithLength,
     get_default_poseidon_parameters,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)

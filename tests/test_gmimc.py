@@ -13,20 +13,20 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR as FR,
     GOLDILOCKS_FR as GL,
     MERSENNE31_FR as M31,
 )
-from sponge_tpu.gmimc import (
+from sponge_jax.gmimc import (
     GmimcConfig,
     OracleGmimcSponge,
     generate_gmimc_parameters,
     get_default_gmimc_parameters,
     gmimc_default_rounds,
 )
-from sponge_tpu.gmimc.permutation import gmimc_permute_jit
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.gmimc.permutation import gmimc_permute_jit
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 CFG = get_default_gmimc_parameters(FR, 2)
 
@@ -127,9 +127,9 @@ def test_xla_tier_small_field_explicit_rounds():
 def test_duplex_sponge_integration():
     """The shared batched duplex sponge runs a GmimcConfig unmodified via
     the batched_permute dispatch hook (same plug-in path as Poseidon2)."""
-    from sponge_tpu import Batched
-    from sponge_tpu.absorb import Fp
-    from sponge_tpu.sponge import PoseidonSponge
+    from sponge_jax import Batched
+    from sponge_jax.absorb import Fp
+    from sponge_jax.sponge import PoseidonSponge
 
     B = 2
     lanes = [rand_fr(FR, 5, seed=50 + b) for b in range(B)]
@@ -150,7 +150,7 @@ def test_compiled_transcript_with_gmimc():
     GmimcConfig matches the oracle replay."""
     import jax.numpy as jnp
 
-    from sponge_tpu.transcript import (
+    from sponge_jax.transcript import (
         Absorb,
         SqueezeNative,
         compile_transcript,
@@ -194,8 +194,8 @@ def test_oracle_duplex_is_poseidon_machine():
 def test_host_gmimc_vs_oracle():
     """Native GMiMC (one mont_pow + t-1 mont_adds per round) vs the oracle:
     single permute, and a mixed absorb/squeeze schedule in one native call."""
-    from sponge_tpu import host_run_schedule
-    from sponge_tpu.poseidon.host import HostGmimcSponge, host_available
+    from sponge_jax import host_run_schedule
+    from sponge_jax.poseidon.host import HostGmimcSponge, host_available
 
     for fs, rate in ((FR, 2), (GL, 4)):
         cfg = get_default_gmimc_parameters(fs, rate)
@@ -223,13 +223,16 @@ def test_host_gmimc_vs_oracle():
         assert st.index == o2.index
 
 
-# ---- fused Pallas kernel body (ops/pallas_gmimc.py) ----
+# ---- XLA tier at small fields ----
 
-def _tiny_headroom_gmimc_config(t=3, alpha=5, rounds=30, seed=21):
-    """GMiMC config over a 25-bit, 3-limb field whose R/p headroom (2^11)
-    admits the kernel's full-deferral value bound at CI-sized round counts
-    (the kernel gate needs (2*rounds+6)*p < R)."""
-    from sponge_tpu.fields import FieldSpec
+import pytest
+
+from conftest import check_permutation_vs_oracle
+
+
+def _tiny_gmimc_config(t=3, alpha=5, rounds=30, seed=21):
+    """GMiMC config over a 25-bit, 3-limb field (cheap to compile)."""
+    from sponge_jax.fields import FieldSpec
 
     fs = FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
     rng = np.random.default_rng(seed)
@@ -239,68 +242,9 @@ def _tiny_headroom_gmimc_config(t=3, alpha=5, rounds=30, seed=21):
     )
 
 
-@pytest.mark.parametrize("relaxed", [False, True], ids=["exact", "relaxed"])
-@pytest.mark.parametrize("lane_streams", [1, 2], ids=["1stream", "2streams"])
-def test_gmimc_kernel_body_vs_oracle(lane_streams, relaxed):
-    """The fused kernel body (mock refs, CPU) == the scalar oracle, incl. the
-    full-deferral rest-branch discipline and the exit canonicalization."""
-    import jax
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_gmimc as pg
-
-    cfg = _tiny_headroom_gmimc_config()
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=31 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    rc_np = np.stack([fs.int_to_mont_limbs(c) for c in cfg.rc]).astype(np.int32)
-
-    @jax.jit
-    def run(rc, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pg._gmimc_kernel(
-            _FakeRef(rc), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=lane_streams, relaxed=relaxed,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleGmimcSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert got == o.state, b
-
-
-def test_gmimc_kernel_value_gate():
-    """The fused kernel refuses configs whose headroom cannot carry the
-    full-deferral value bound (31-bit fields: R/p = 32 at L = 3), and the
-    dispatch falls back to the XLA tier rather than erroring."""
-    from sponge_tpu.gmimc.permutation import batched_gmimc_permute
-    from sponge_tpu.ops.pallas_gmimc import _value_gate, gmimc_permute_fn
-
-    m31_cfg = generate_gmimc_parameters(M31, 8, capacity=8, rounds=20)
-    assert not _value_gate(m31_cfg)
-    with pytest.raises(ValueError, match="value|bound|needs"):
-        gmimc_permute_fn(m31_cfg)
-    # BLS12-381 (2^9 headroom, 226 rounds) and Goldilocks (2^8 headroom at
-    # the 6-limb layout, 62 rounds) both pass.
-    assert _value_gate(CFG)
-    assert _value_gate(get_default_gmimc_parameters(GL, 4))
-
-    # auto dispatch on CPU: XLA tier, still oracle-exact.
-    B = 4
-    vals = [rand_fr(M31, B, seed=41 + i) for i in range(m31_cfg.t)]
-    state = jnp.asarray(
-        np.stack([M31.ints_to_mont_plane(row) for row in vals], axis=0)
-    )
-    out = np.asarray(batched_gmimc_permute(m31_cfg, state))
-    for b in range(B):
-        o = OracleGmimcSponge(m31_cfg)
-        o.state = [vals[i][b] for i in range(m31_cfg.t)]
-        o.permute()
-        assert [M31.mont_limbs_to_int(out[i][:, b]) for i in range(m31_cfg.t)] == o.state
+@pytest.mark.parametrize("alpha", [3, 5], ids=["a3", "a5"])
+@pytest.mark.parametrize("t", [3, 5], ids=["t3", "t5"])
+def test_xla_tier_tiny_field_vs_oracle(t, alpha):
+    """The XLA tier (the family's only device tier) at small widths and
+    both S-box degrees, over many rounds of unreduced branch adds."""
+    check_permutation_vs_oracle(_tiny_gmimc_config(t=t, alpha=alpha))

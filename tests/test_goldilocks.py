@@ -1,8 +1,8 @@
 """Goldilocks (2^64 - 2^32 + 1) support: the dominant small ZK field.
 
 Additive capability (the reference ships no small fields).  6-limb planes
-make the fully-unrolled kernel bodies cheap enough to execute in default CI,
-and the capacity-4 sponge geometry (256 capacity bits for 128-bit security)
+make the device tiers cheap enough to compile in default CI, and the
+capacity-4 sponge geometry (256 capacity bits for 128-bit security)
 exercises the duplex machinery's capacity > 1 paths for the first time —
 the reference hardcodes capacity = 1 (traits.rs:96).
 """
@@ -14,7 +14,7 @@ import pytest
 
 import jax.numpy as jnp
 
-from sponge_tpu import (
+from sponge_jax import (
     GOLDILOCKS_FR as GL,
     Fp,
     Batched,
@@ -23,7 +23,7 @@ from sponge_tpu import (
     get_default_poseidon_parameters,
     get_default_poseidon2_parameters,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 CFG = get_default_poseidon_parameters(GL, 8)
 CFG2 = get_default_poseidon2_parameters(GL, 8)
@@ -58,8 +58,8 @@ def test_oracle_golden_regression():
 
 
 def test_xla_tier_vs_oracle_both_families():
-    from sponge_tpu.poseidon.permutation import permute_jit
-    from sponge_tpu.poseidon2.permutation import poseidon2_permute_jit
+    from sponge_jax.poseidon.permutation import permute_jit
+    from sponge_jax.poseidon2.permutation import poseidon2_permute_jit
 
     B = 4
     vals = [rand_gl(B, seed=9 + i) for i in range(12)]
@@ -80,23 +80,10 @@ def test_xla_tier_vs_oracle_both_families():
 
 
 def test_cios_kernel_body_goldilocks():
-    """The production CIOS kernel body at L=6, t=12 (grouped lazy-MDS path:
-    t*L + L - 1 = 77 < 128, single group) — compiles in seconds in CI."""
-    import sys
+    """The Poseidon XLA tier at L=6, t=12 on a 128-lane batch."""
+    from conftest import check_permutation_vs_oracle
 
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_pallas_kernels import _run_cios_kernel_body
-
-    _run_cios_kernel_body(CFG, optimized=True, B=128, stride=31)
-    _run_cios_kernel_body(CFG, optimized=False, B=128, stride=63)
-
-
-def test_p2_kernel_body_goldilocks():
-    """The Poseidon2 kernel body at L=6, t=12: block-circulant M_E, Grain
-    (Montgomery) diagonal, rho-folding at R/p = 2^8."""
-    from test_poseidon2 import _run_p2_kernel_body
-
-    _run_p2_kernel_body(CFG2, B=128, stride=31)
+    check_permutation_vs_oracle(CFG, B=128, stride=31)
 
 
 @pytest.mark.parametrize("cfg,oracle_cls", [(CFG, OraclePoseidonSponge),
@@ -126,7 +113,7 @@ def test_capacity4_duplex_sponge_vs_oracle(cfg, oracle_cls):
 
 
 def test_host_runtime_goldilocks():
-    from sponge_tpu.poseidon.host import host_available, host_permute_states
+    from sponge_jax.poseidon.host import host_available, host_permute_states
 
     if not host_available(CFG):
         pytest.skip("no C++ toolchain")
@@ -141,8 +128,8 @@ def test_host_runtime_goldilocks():
 
 
 def test_merkle_and_transcript_goldilocks():
-    from sponge_tpu.hash import merkle_root
-    from sponge_tpu.transcript import Absorb, SqueezeNative, compile_transcript
+    from sponge_jax.hash import merkle_root
+    from sponge_jax.transcript import Absorb, SqueezeNative, compile_transcript
 
     leaves_int = rand_gl(8, seed=5)
     root = GL.mont_limbs_to_int(
@@ -176,7 +163,7 @@ def test_merkle_and_transcript_goldilocks():
 def test_wide_digest_merkle():
     """4-element (256-bit) digests over Goldilocks: tree, root, batched
     open/verify — all vs an oracle chain (absorb 8, squeeze 4 per node)."""
-    from sponge_tpu.hash import (
+    from sponge_jax.hash import (
         default_digest_elems,
         merkle_open_batch_wide,
         merkle_root_wide,
@@ -224,7 +211,7 @@ def test_wide_digest_merkle():
 
 def test_wide_digest_d1_matches_narrow():
     """d = 1 wide tree == the narrow Merkle functions (structural identity)."""
-    from sponge_tpu.hash import merkle_root, merkle_root_wide
+    from sponge_jax.hash import merkle_root, merkle_root_wide
 
     leaves_int = rand_gl(8, seed=77)
     narrow = merkle_root(CFG, jnp.asarray(GL.ints_to_mont_plane(leaves_int)))
@@ -237,8 +224,8 @@ def test_wide_digest_d1_matches_narrow():
 def test_sharded_wide_merkle_matches_single_device():
     """Wide-digest Merkle sharded over the 8-device CPU mesh == single-device,
     crossing the reshard-at-narrow cutover (N = 32 digests, D = 8)."""
-    from sponge_tpu.hash import merkle_root_wide
-    from sponge_tpu.parallel import make_mesh, sharded_merkle_root_wide
+    from sponge_jax.hash import merkle_root_wide
+    from sponge_jax.parallel import make_mesh, sharded_merkle_root_wide
 
     d = 4
     N = 32
@@ -249,7 +236,7 @@ def test_sharded_wide_merkle_matches_single_device():
     single = merkle_root_wide(CFG, leaves, backend="xla")
     mesh = make_mesh()
     sharded = sharded_merkle_root_wide(CFG, leaves, mesh, backend="xla")
-    from sponge_tpu.ops import montgomery as mont
+    from sponge_jax.ops import montgomery as mont
 
     a = np.asarray(mont.from_mont(GL, single[..., None]))
     b = np.asarray(mont.from_mont(GL, sharded[..., None]))

@@ -12,12 +12,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR as FR,
     GOLDILOCKS_FR as GL,
     MERSENNE31_FR as M31,
 )
-from sponge_tpu.griffin import (
+from sponge_jax.griffin import (
     GriffinConfig,
     OracleGriffinSponge,
     generate_griffin_parameters,
@@ -25,8 +25,8 @@ from sponge_tpu.griffin import (
     griffin_default_rounds,
     is_quadratic_nonresidue,
 )
-from sponge_tpu.griffin.permutation import griffin_permute_jit
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.griffin.permutation import griffin_permute_jit
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 CFG = get_default_griffin_parameters(FR, 2)
 
@@ -156,9 +156,9 @@ def test_xla_tier_small_field_explicit_rounds():
 def test_duplex_sponge_integration():
     """The shared batched duplex sponge runs a GriffinConfig unmodified via
     the batched_permute dispatch hook (same plug-in path as Poseidon2)."""
-    from sponge_tpu import Batched
-    from sponge_tpu.absorb import Fp
-    from sponge_tpu.sponge import PoseidonSponge
+    from sponge_jax import Batched
+    from sponge_jax.absorb import Fp
+    from sponge_jax.sponge import PoseidonSponge
 
     B = 2
     lanes = [rand_fr(FR, 5, seed=50 + b) for b in range(B)]
@@ -184,148 +184,22 @@ def test_oracle_duplex_is_poseidon_machine():
     assert o2.squeeze_native_field_elements(1) == o.squeeze_native_field_elements(1)
 
 
-# ---- fused Pallas kernel body (ops/pallas_griffin.py) ----
+# ---- XLA tier at small fields ----
 
-def _tiny_headroom_griffin_config(rate=2, rounds=4):
-    """Griffin config over a 25-bit, 3-limb field (R/p headroom 2^11): wide
-    enough for the kernel's value fixpoint (the un-reduced small-int linear
-    layer amplifies values by row_sum before each ladder)."""
-    from sponge_tpu.fields import FieldSpec
+from conftest import check_permutation_vs_oracle
+
+
+def _tiny_griffin_config(rate=2, rounds=4):
+    """Griffin config over a 25-bit, 3-limb field (cheap to compile)."""
+    from sponge_jax.fields import FieldSpec
 
     fs = FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
     return generate_griffin_parameters(fs, rate, rounds=rounds)
 
 
-@pytest.mark.parametrize("relaxed", [False, True], ids=["exact", "relaxed"])
-@pytest.mark.parametrize("lane_streams", [1, 2], ids=["1stream", "2streams"])
-def test_griffin_kernel_body_vs_oracle(lane_streams, relaxed):
-    """The fused kernel body (mock refs, CPU) == the scalar oracle: run-length
-    inverse ladder, interleaved quadratic gates, un-reduced small-int linear
-    layer, exit canonicalization."""
-    import jax
-    import jax.numpy as jnp
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_griffin as pg
-    from sponge_tpu.ops.pallas_rescue import _exponent_runs
-
-    cfg = _tiny_headroom_griffin_config()
-    pg._check_kernel_value_bounds(cfg, False)
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=81 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    zero_row = tuple(0 for _ in range(t))
-    rc_np = np.stack(
-        [
-            np.concatenate([fs.int_to_mont_limbs(c) for c in row])
-            for row in tuple(cfg.rc) + (zero_row,)
-        ]
-    ).astype(np.int32)
-    runs, _ = _exponent_runs(cfg.inv_alpha)
-    runs_np = np.asarray(runs, dtype=np.int32)
-
-    @jax.jit
-    def run(rc, runs_arr, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pg._griffin_kernel(
-            _FakeRef(rc), _FakeRef(runs_arr), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=lane_streams, relaxed=relaxed,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, runs_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleGriffinSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert got == o.state, b
-        for i in range(t):
-            assert fs.limbs_to_int(out[i][:, b]) < 2 * fs.modulus
-            assert all(int(v) < (1 << 12) for v in out[i][:, b])
-
-
-def test_griffin_kernel_pallas_call_interpret():
-    """griffin_permute_fn through pl.pallas_call in interpret mode (SMEM
-    specs, grid tiling, run-length plumbing)."""
-    import jax.numpy as jnp
-
-    from sponge_tpu.ops.pallas_griffin import griffin_permute_fn
-
-    cfg = _tiny_headroom_griffin_config(rounds=2)
-    fs = cfg.field
-    t, B = cfg.t, 2048
-    vals = [rand_fr(fs, B, seed=91 + i) for i in range(t)]
-    state = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    )
-    out = np.asarray(griffin_permute_fn(cfg, interpret=True)(state))
-    for b in range(0, B, 511):
-        o = OracleGriffinSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        assert [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)] == o.state
-
-
-def test_griffin_kernel_value_gate():
-    """The unreduced fixpoint admits the 255-bit default but genuinely
-    diverges for Goldilocks t=8 (row_sum 48 vs R/p = 256); the post-linear
-    Montgomery-by-1 reduction closes it — griffin_permute_fn selects that
-    automatically."""
-    import pytest as _pytest
-
-    from sponge_tpu.ops.pallas_griffin import _check_kernel_value_bounds
-
-    _check_kernel_value_bounds(CFG, False)
-    _check_kernel_value_bounds(_tiny_headroom_griffin_config(), False)
-    gl = get_default_griffin_parameters(GL, 4)
-    with _pytest.raises(ValueError, match="reaches R"):
-        _check_kernel_value_bounds(gl, False)
-    _check_kernel_value_bounds(gl, True)
-
-
-def test_griffin_kernel_body_reduce_linear():
-    """The post-linear reduction variant (the Goldilocks-t=8 schedule) is
-    still oracle bit-exact."""
-    import jax
-    import jax.numpy as jnp
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_griffin as pg
-    from sponge_tpu.ops.pallas_rescue import _exponent_runs
-
-    cfg = _tiny_headroom_griffin_config()
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=85 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    zero_row = tuple(0 for _ in range(t))
-    rc_np = np.stack(
-        [
-            np.concatenate([fs.int_to_mont_limbs(c) for c in row])
-            for row in tuple(cfg.rc) + (zero_row,)
-        ]
-    ).astype(np.int32)
-    runs, _ = _exponent_runs(cfg.inv_alpha)
-    runs_np = np.asarray(runs, dtype=np.int32)
-
-    @jax.jit
-    def run(rc, runs_arr, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pg._griffin_kernel(
-            _FakeRef(rc), _FakeRef(runs_arr), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=2, relaxed=True, reduce_linear=True,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, runs_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleGriffinSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        assert [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)] == o.state
+@pytest.mark.parametrize("rounds", [2, 4], ids=["r2", "r4"])
+@pytest.mark.parametrize("rate", [2, 3], ids=["rate2", "rate3"])
+def test_xla_tier_tiny_field_vs_oracle(rate, rounds):
+    """The inverse ladder, quadratic gates and linear layer of the XLA tier
+    (the family's only device tier) at small widths."""
+    check_permutation_vs_oracle(_tiny_griffin_config(rate, rounds))

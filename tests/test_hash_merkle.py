@@ -7,13 +7,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-from sponge_tpu.hash import compress_pairs, hash_elements, merkle_root
-from sponge_tpu.ops import montgomery as mont
-from sponge_tpu.parallel import make_mesh, sharded_merkle_root, sharded_permute_fn, sharded_state
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.poseidon.params import poseidon_test_fixture
-from sponge_tpu.poseidon.permutation import permute_jit
+from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+from sponge_jax.hash import compress_pairs, hash_elements, merkle_root
+from sponge_jax.ops import montgomery as mont
+from sponge_jax.parallel import make_mesh, sharded_merkle_root, sharded_permute_fn, sharded_state
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.params import poseidon_test_fixture
+from sponge_jax.poseidon.permutation import permute_jit
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)
@@ -122,7 +122,7 @@ def test_merkle_chunked_matches_unchunked():
 
 def test_merkle_open_verify():
     """Authentication paths verify against the root and reject tampering."""
-    from sponge_tpu.hash import merkle_open, merkle_tree, merkle_verify
+    from sponge_jax.hash import merkle_open, merkle_tree, merkle_verify
 
     N = 16
     vals = rand_fr(N)
@@ -144,7 +144,7 @@ def test_merkle_open_verify():
 
 def test_hash_elements_long_squeeze():
     """num_outputs > rate goes through multi-chunk squeezes."""
-    from sponge_tpu.hash import hash_elements
+    from sponge_jax.hash import hash_elements
 
     B = 2
     grid = [rand_fr(B) for _ in range(3)]
@@ -163,7 +163,7 @@ def test_hash_elements_long_squeeze():
 def test_merkle_open_verify_batch():
     """Batched open/verify in one fused program each == scalar path helpers,
     with tamper and wrong-index rejection."""
-    from sponge_tpu.hash import (
+    from sponge_jax.hash import (
         merkle_open,
         merkle_open_batch,
         merkle_tree,
@@ -222,13 +222,13 @@ def test_jive_compression_vs_oracle():
     replay of the oracle permutation, for Anemoi t=2 (the paper's width),
     Griffin t=8 over Goldilocks (d=4 wide digests), and Poseidon2 t=2 (the
     fastest 255-bit 2-to-1 compressor, BENCHMARKS.md)."""
-    from sponge_tpu import (
+    from sponge_jax import (
         GOLDILOCKS_FR,
         get_default_anemoi_parameters,
         get_default_griffin_parameters,
     )
-    from sponge_tpu.hash import jive_compress_pairs, merkle_root_jive
-    from sponge_tpu.poseidon2 import generate_poseidon2_parameters
+    from sponge_jax.hash import jive_compress_pairs, merkle_root_jive
+    from sponge_jax.poseidon2 import generate_poseidon2_parameters
 
     rng = np.random.default_rng(44)
     for cfg in (
@@ -299,9 +299,9 @@ def test_jive_merkle_open_verify_batch():
     Config: Griffin Goldilocks rate-4 (t = 8, d = 4) — a 64-bit inverse
     ladder keeps the depth-4 fused verify program small enough for the CPU
     CI compile; the t = 2 Anemoi Jive width is covered by
-    ``test_jive_compression_vs_oracle`` and the TPU probes."""
-    from sponge_tpu import GOLDILOCKS_FR, get_default_griffin_parameters
-    from sponge_tpu.hash import (
+    ``test_jive_compression_vs_oracle``."""
+    from sponge_jax import GOLDILOCKS_FR, get_default_griffin_parameters
+    from sponge_jax.hash import (
         merkle_open_batch_wide,
         merkle_root_jive,
         merkle_tree_jive,
@@ -360,8 +360,8 @@ def test_sharded_merkle_verify_batch_matches_local():
     """Proof-lane-sharded batched verification (8-device mesh) == the
     single-device merkle_verify_batch, incl. rejecting a tampered lane
     (VERDICT r2 item 6: batched proof verify crossing shard_map)."""
-    from sponge_tpu.hash import merkle_open_batch, merkle_tree, merkle_verify_batch
-    from sponge_tpu.parallel import sharded_merkle_verify_batch
+    from sponge_jax.hash import merkle_open_batch, merkle_tree, merkle_verify_batch
+    from sponge_jax.parallel import sharded_merkle_verify_batch
 
     mesh = make_mesh(8)
     N = 64
@@ -393,9 +393,9 @@ def test_sharded_merkle_verify_batch_matches_local():
 def test_sharded_merkle_root_wide_matches_local():
     """Sharded wide-digest Merkle root (d-element digests, 8-device mesh,
     narrow-tail cutover) == single-device merkle_root_wide."""
-    from sponge_tpu import GOLDILOCKS_FR, get_default_poseidon2_parameters
-    from sponge_tpu.hash import merkle_root_wide
-    from sponge_tpu.parallel import sharded_merkle_root_wide
+    from sponge_jax import GOLDILOCKS_FR, get_default_poseidon2_parameters
+    from sponge_jax.hash import merkle_root_wide
+    from sponge_jax.parallel import sharded_merkle_root_wide
 
     fs = GOLDILOCKS_FR
     cfg = get_default_poseidon2_parameters(fs, 8)
@@ -419,9 +419,9 @@ def test_sharded_merkle_root_wide_matches_local():
 def test_sharded_merkle_root_jive_matches_local():
     """Sharded Jive-mode Merkle root (8-device mesh, feed-forward compression,
     narrow-tail cutover) == single-device merkle_root_jive."""
-    from sponge_tpu import GOLDILOCKS_FR, get_default_griffin_parameters
-    from sponge_tpu.hash import merkle_root_jive
-    from sponge_tpu.parallel import sharded_merkle_root_jive
+    from sponge_jax import GOLDILOCKS_FR, get_default_griffin_parameters
+    from sponge_jax.hash import merkle_root_jive
+    from sponge_jax.parallel import sharded_merkle_root_jive
 
     fs = GOLDILOCKS_FR
     cfg = get_default_griffin_parameters(fs, 4)  # t = 8, d = 4
@@ -441,34 +441,3 @@ def test_sharded_merkle_root_jive_matches_local():
             root_local[j]
         )
 
-
-def test_pad_ladder_shapes():
-    """The narrow-level pad ladder: geometric ratio-4 shapes from chunk down
-    to the kernel tile floor; every target is the smallest shape >= n, so the
-    padded-tail waste per level is bounded at 3x the level width (vs
-    chunk - n with the old single-shape padding)."""
-    from sponge_tpu.hash import _pad_ladder, _pad_target, _tile_lanes
-
-    # The ladder floor is the fused kernel's tuned tile constant, not a copy
-    # of it (ADVICE r3: a SUBLANES retune must keep padded levels on the
-    # fused kernel path).
-    assert _pad_ladder(1 << 17)[-1] == _tile_lanes()
-    assert _pad_ladder(1 << 17) == (1 << 17, 1 << 15, 1 << 13, 1 << 11)
-    assert _pad_ladder(2048) == (2048,)
-    # sub-tile chunks pad UP to the tile floor so small trees still reach the
-    # fused kernel batch shape on TPU
-    assert _pad_ladder(1024) == (2048,)
-    for chunk in (1 << 17, 1 << 16, 1 << 12):
-        ladder = _pad_ladder(chunk)
-        # every shape a multiple of the 2048 tile (or the chunk itself)
-        for s in ladder:
-            assert s == chunk or s % 2048 == 0
-        for n in (1, 2, 100, 2048, 2049, 5000, chunk - 1, chunk):
-            if n > chunk:
-                continue
-            tgt = _pad_target(n, chunk)
-            assert tgt >= n
-            assert tgt in ladder
-            # minimality: no smaller ladder shape fits
-            smaller = [s for s in ladder if n <= s < tgt]
-            assert not smaller

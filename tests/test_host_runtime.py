@@ -10,15 +10,15 @@ quirk), batched permutes, and segmented schedule resume.
 import numpy as np
 import pytest
 
-from sponge_tpu import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
-from sponge_tpu.absorb import Fp
-from sponge_tpu.poseidon.host import (
+from sponge_jax import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
+from sponge_jax.absorb import Fp
+from sponge_jax.poseidon.host import (
     HostPoseidonSponge,
     host_available,
     host_permute_states,
     host_run_schedule,
 )
-from sponge_tpu.poseidon.oracle import ABSORBING, OraclePoseidonSponge
+from sponge_jax.poseidon.oracle import ABSORBING, OraclePoseidonSponge
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)
@@ -166,8 +166,8 @@ def test_host_sponge_ext_roundtrip():
 
 
 def test_host_poseidon2_permute_vs_oracle():
-    from sponge_tpu import get_default_poseidon2_parameters
-    from sponge_tpu.poseidon2 import OraclePoseidon2Sponge
+    from sponge_jax import get_default_poseidon2_parameters
+    from sponge_jax.poseidon2 import OraclePoseidon2Sponge
 
     cfg2 = get_default_poseidon2_parameters(FR, 2)
     rng = np.random.default_rng(3)
@@ -181,9 +181,9 @@ def test_host_poseidon2_permute_vs_oracle():
 
 
 def test_host_poseidon2_sponge_vs_oracle():
-    from sponge_tpu import get_default_poseidon2_parameters
-    from sponge_tpu.poseidon.host import HostPoseidon2Sponge
-    from sponge_tpu.poseidon2 import OraclePoseidon2Sponge
+    from sponge_jax import get_default_poseidon2_parameters
+    from sponge_jax.poseidon.host import HostPoseidon2Sponge
+    from sponge_jax.poseidon2 import OraclePoseidon2Sponge
 
     cfg2 = get_default_poseidon2_parameters(FR, 2)
     h = HostPoseidon2Sponge(cfg2)
@@ -202,8 +202,8 @@ def test_host_poseidon2_sponge_vs_oracle():
 
 
 def test_host_poseidon2_run_schedule_vs_oracle():
-    from sponge_tpu import get_default_poseidon2_parameters
-    from sponge_tpu.poseidon2 import OraclePoseidon2Sponge
+    from sponge_jax import get_default_poseidon2_parameters
+    from sponge_jax.poseidon2 import OraclePoseidon2Sponge
 
     cfg2 = get_default_poseidon2_parameters(FR, 2)
     rng = np.random.default_rng(11)
@@ -223,15 +223,15 @@ def test_host_monolith_vs_oracle():
     """Native Monolith permute + full sponge + schedule driver vs oracle,
     over all four bar-safe fields (BabyBear exercises the non-byte-aligned
     bar chunk boundary in the native bar_u64)."""
-    from sponge_tpu import (
+    from sponge_jax import (
         BABYBEAR_FR,
         GOLDILOCKS_FR,
         KOALABEAR_FR,
         MERSENNE31_FR,
         get_default_monolith_parameters,
     )
-    from sponge_tpu.monolith import OracleMonolithSponge
-    from sponge_tpu.poseidon.host import HostMonolithSponge, host_available
+    from sponge_jax.monolith import OracleMonolithSponge
+    from sponge_jax.poseidon.host import HostMonolithSponge, host_available
 
     rng = np.random.default_rng(13)
     for fs in (GOLDILOCKS_FR, MERSENNE31_FR, KOALABEAR_FR, BABYBEAR_FR):
@@ -271,9 +271,9 @@ def test_host_monolith_vs_oracle():
 def test_host_rescue_vs_oracle():
     """Native Rescue-Prime (wide-exponent inverse S-box) vs oracle, 31-bit
     and 255-bit fields."""
-    from sponge_tpu import MERSENNE31_FR, get_default_rescue_parameters
-    from sponge_tpu.poseidon.host import HostRescueSponge, host_available
-    from sponge_tpu.rescue import OracleRescueSponge
+    from sponge_jax import MERSENNE31_FR, get_default_rescue_parameters
+    from sponge_jax.poseidon.host import HostRescueSponge, host_available
+    from sponge_jax.rescue import OracleRescueSponge
 
     rng = np.random.default_rng(14)
     for fs, rate in ((MERSENNE31_FR, 8), (FR, 2)):
@@ -305,9 +305,9 @@ def test_host_rescue_vs_oracle():
 def test_host_griffin_vs_oracle():
     """Native Griffin (wide-exponent y0 ladder + quadratic-gated elements)
     vs oracle, 255-bit t=3 and Goldilocks t=8."""
-    from sponge_tpu import GOLDILOCKS_FR, get_default_griffin_parameters
-    from sponge_tpu.griffin import OracleGriffinSponge
-    from sponge_tpu.poseidon.host import HostGriffinSponge, host_available
+    from sponge_jax import GOLDILOCKS_FR, get_default_griffin_parameters
+    from sponge_jax.griffin import OracleGriffinSponge
+    from sponge_jax.poseidon.host import HostGriffinSponge, host_available
 
     rng = np.random.default_rng(15)
     for fs, rate in ((FR, 2), (GOLDILOCKS_FR, 4)):
@@ -339,9 +339,9 @@ def test_host_griffin_vs_oracle():
 def test_host_anemoi_vs_oracle():
     """Native Anemoi (Flystel with wide-exponent ladder + mont_sub) vs
     oracle, 255-bit t=2/t=4 and Goldilocks t=8."""
-    from sponge_tpu import GOLDILOCKS_FR, get_default_anemoi_parameters
-    from sponge_tpu.anemoi import OracleAnemoiSponge
-    from sponge_tpu.poseidon.host import HostAnemoiSponge, host_available
+    from sponge_jax import GOLDILOCKS_FR, get_default_anemoi_parameters
+    from sponge_jax.anemoi import OracleAnemoiSponge
+    from sponge_jax.poseidon.host import HostAnemoiSponge, host_available
 
     rng = np.random.default_rng(16)
     for fs, rate in ((FR, 1), (FR, 3), (GOLDILOCKS_FR, 4)):

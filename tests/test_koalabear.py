@@ -14,13 +14,13 @@ import pytest
 
 import jax.numpy as jnp
 
-from sponge_tpu import (
+from sponge_jax import (
     KOALABEAR_FR as KB,
     OraclePoseidon2Sponge,
     get_default_poseidon_parameters,
     get_default_poseidon2_parameters,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 CFG = get_default_poseidon_parameters(KB, 8)
 CFG2 = get_default_poseidon2_parameters(KB, 8)
@@ -59,8 +59,8 @@ def test_oracle_golden_regression():
 
 
 def test_xla_tiers_vs_oracle():
-    from sponge_tpu.poseidon.permutation import permute_jit
-    from sponge_tpu.poseidon2.permutation import poseidon2_permute_jit
+    from sponge_jax.poseidon.permutation import permute_jit
+    from sponge_jax.poseidon2.permutation import poseidon2_permute_jit
 
     B = 4
     vals = [rand_kb(B, seed=3 + i) for i in range(16)]
@@ -81,19 +81,15 @@ def test_xla_tiers_vs_oracle():
 
 
 def test_kernel_bodies():
-    """Both fused kernel bodies at L=3, t=16, alpha=3 in CI."""
-    import sys
+    """Both families' XLA tiers at L=3, t=16, alpha=3 on a 128-lane batch."""
+    from conftest import check_permutation_vs_oracle
 
-    sys.path.insert(0, __file__.rsplit("/", 1)[0])
-    from test_pallas_kernels import _run_cios_kernel_body
-    from test_poseidon2 import _run_p2_kernel_body
-
-    _run_cios_kernel_body(CFG, optimized=True, B=128, stride=29)
-    _run_p2_kernel_body(CFG2, B=128, stride=29)
+    check_permutation_vs_oracle(CFG, B=128, stride=29)
+    check_permutation_vs_oracle(CFG2, B=128, stride=29)
 
 
 def test_host_runtime_koalabear():
-    from sponge_tpu.poseidon.host import host_available, host_permute_states
+    from sponge_jax.poseidon.host import host_available, host_permute_states
 
     if not host_available(CFG):
         pytest.skip("no C++ toolchain")
@@ -109,9 +105,9 @@ def test_host_runtime_koalabear():
 
 def test_sponge_device_vs_oracle():
     """Full duplex sponge over KoalaBear on the batched device path."""
-    from sponge_tpu import Batched
-    from sponge_tpu.absorb import Fp
-    from sponge_tpu.sponge import PoseidonSponge
+    from sponge_jax import Batched
+    from sponge_jax.absorb import Fp
+    from sponge_jax.sponge import PoseidonSponge
 
     B = 3
     lanes = [rand_kb(10, seed=100 + b) for b in range(B)]

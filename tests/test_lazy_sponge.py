@@ -15,15 +15,15 @@ import numpy as np
 import pytest
 from conftest import TINY_FR, tiny_poseidon_config
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     Batched,
     LazyPoseidonSponge,
     PoseidonSponge,
     get_default_poseidon_parameters,
 )
-from sponge_tpu.absorb import Fp
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.absorb import Fp
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)
@@ -110,7 +110,7 @@ def test_lazy_clone_fork_and_state():
     assert s.squeeze_native_field_elements(2) == c.squeeze_native_field_elements(2)
 
     # fork == clone + length-prefixed domain absorb (on top of pending state)
-    from sponge_tpu import absorb as codec
+    from sponge_jax import absorb as codec
 
     f1 = s.fork(b"dom")
     f2 = s.clone()
@@ -128,7 +128,7 @@ def test_lazy_clone_fork_and_state():
 
 def test_segment_cache_reuse():
     """A loop with stable per-iteration structure compiles its segment once."""
-    from sponge_tpu.lazy import _segment_fn
+    from sponge_jax.lazy import _segment_fn
 
     _segment_fn.cache_clear()
     rng = np.random.default_rng(13)
@@ -154,7 +154,7 @@ def test_segment_cache_bounded(monkeypatch):
     it to 3 so eviction triggers within a handful of compiles."""
     import functools
 
-    import sponge_tpu.lazy as lazy_mod
+    import sponge_jax.lazy as lazy_mod
 
     assert lazy_mod._segment_fn.cache_parameters()["maxsize"] == (
         lazy_mod.SEGMENT_CACHE_SIZE
@@ -180,7 +180,7 @@ def test_segment_cache_bounded(monkeypatch):
 def test_segment_bookkeeping_matches_interactive():
     """segment_bookkeeping ≡ the interactive sponge's (mode, index) evolution
     (host-only equivalence, no extra compiles: reuses one interactive sponge)."""
-    from sponge_tpu.transcript import Absorb, SqueezeNative, segment_bookkeeping
+    from sponge_jax.transcript import Absorb, SqueezeNative, segment_bookkeeping
 
     rng = np.random.default_rng(17)
     plain = PoseidonSponge(TCFG, batch_size=1, lazy=False)

@@ -1,18 +1,14 @@
-"""13-bit limb plan (DESIGN §25): width-parameterized kernels + uint32 path.
+"""13-bit limb plan (DESIGN §7): width-parameterized limb planes.
 
-The production CIOS kernel historically hardcoded the 12-bit limb plan; the
-13-bit plan (L 22 -> 20 for 255-bit fields, bench/limb13_probe.py) threads
-the limb width through every REDC/norm helper and switches column
-accumulation to uint32 when the worst column exceeds 2^31 (fields.py
-``unsigned_accum``).  These tests pin:
+The 13-bit plan (L 22 -> 20 for 255-bit fields) threads the limb width
+through every codec and XLA-tier helper; FieldSpec classifies each field's
+32-bit column budget (fields.py ``unsigned_accum``).  These tests pin:
 
   * FieldSpec budget classification (int32 / uint32 / reject) and the
     13-bit host codecs;
-  * kernel parity vs the scalar oracle at a 13-bit tiny field (int32
-    budget) across schedule variants;
-  * kernel parity on a field that FORCES the uint32 accumulation path
-    (15-bit limbs, worst column in [2^31, 2^32));
-  * the MDS accumulation-group budgets at both widths.
+  * XLA-tier parity vs the scalar oracle at a 13-bit tiny field and at a
+    15-bit field whose worst kernel column would exceed 2^31, across widths
+    and S-box degrees.
 """
 
 import os
@@ -24,12 +20,7 @@ import pytest
 sys.path.insert(0, os.path.dirname(__file__))
 from conftest import tiny_poseidon_config  # noqa: E402
 
-from sponge_tpu.fields import BLS12_381_FR, BLS12_381_FR_L13, FieldSpec  # noqa: E402
-from sponge_tpu.ops.pallas_cios import (  # noqa: E402
-    _mds_groups,
-    cios_permute_fn,
-    quasi_limb_max,
-)
+from sponge_jax.fields import BLS12_381_FR, BLS12_381_FR_L13, FieldSpec  # noqa: E402
 
 TINY13 = FieldSpec(name="tiny13", modulus=(1 << 35) - 31, generator=3, limb_bits=13)
 # 25-bit modulus at 15-bit limbs: L=2, worst column bound lands in
@@ -68,75 +59,17 @@ def test_codec_roundtrip_13bit():
     assert fs.mont_plane_to_ints(plane) == xs
 
 
-def test_quasi_limb_max_and_groups():
-    # 12-bit/int32: exact bound is one tighter than the conservative
-    # historical constant QUASI_LIMB_MAX = 4224; grouping is unchanged.
-    assert quasi_limb_max(12, False) == (1 << 12) + 127
-    assert _mds_groups(22, 3) == [(0, 1, 2)]
-    assert _mds_groups(22, 3, quasi=True) == [(0, 1, 2)]
-    # 13-bit/uint32: 64-term budget -> g = 2 at L = 20, both modes.
-    assert quasi_limb_max(13, True) == (1 << 13) + 63
-    for quasi in (False, True):
-        got = _mds_groups(20, 3, quasi=quasi, lb=13, unsigned=True)
-        assert got == [(0, 1), (2,)], (quasi, got)
+@pytest.mark.parametrize("alpha", [3, 5, 17], ids=["a3", "a5", "a17"])
+@pytest.mark.parametrize("t", [2, 3, 4], ids=["t2", "t3", "t4"])
+@pytest.mark.parametrize("fs", [TINY13, TINY_U15], ids=["tiny13", "tiny_u15"])
+def test_xla_tier_parity_widths_and_degrees(fs, t, alpha):
+    """The XLA tier at non-12-bit limb widths over every width the main path
+    uses and each shipped S-box degree (alpha = 3 takes the value-safe
+    folding round where its fixpoint would reach R)."""
+    from conftest import check_permutation_vs_oracle
 
-
-def _kernel_parity(cfg, kwargs, lanes=16, B=2048):
-    fs = cfg.field
-    rng = np.random.default_rng(11)
-    vals = [
-        [int(v) % fs.modulus for v in rng.integers(0, 1 << 62, size=lanes)]
-        + [0] * (B - lanes)
-        for _ in range(cfg.t)
-    ]
-    state = np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    fn = cios_permute_fn(cfg, interpret=True, **kwargs)
-    out = np.asarray(fn(state))
-    for k in range(lanes):
-        o = cfg.oracle_sponge()
-        o.state = [vals[i][k] for i in range(cfg.t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, k]) % fs.modulus for i in range(cfg.t)]
-        assert got == [v % fs.modulus for v in o.state], (kwargs, k)
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {},
-        {"relaxed": False},
-        {"optimized": False},
-        {"mds_group": 1},
-        {"pipelined": True, "lane_streams": 1, "sublanes": 16},
-    ],
-    ids=["default", "exact-norm", "unoptimized", "grouped", "pipelined"],
-)
-def test_kernel_parity_13bit_tiny(kwargs):
-    _kernel_parity(tiny_poseidon_config(field=TINY13), kwargs)
-
-
-@pytest.mark.parametrize(
-    "kwargs",
-    [
-        {},
-        {"relaxed": False},
-        {"mds_group": 1},
-        {"lane_streams": 1, "sublanes": 16},
-    ],
-    ids=["default", "exact-norm", "grouped", "one-stream"],
-)
-def test_kernel_parity_uint32_path(kwargs):
-    """The unsigned-accumulation (uint32) kernel path, bit-exact vs oracle.
-
-    TINY_U15's near-full 15-bit limbs push real column sums past 2^31, so a
-    signed-shift regression in the uint32 plumbing cannot pass this test."""
-    _kernel_parity(tiny_poseidon_config(field=TINY_U15), kwargs)
-
-
-def test_mds_mxu_rejects_non_12bit():
-    cfg = tiny_poseidon_config(field=TINY13)
-    with pytest.raises(ValueError):
-        cios_permute_fn(cfg, mds_mxu=True)
+    cfg = tiny_poseidon_config(t=t, alpha=alpha, field=fs, seed=3 + t)
+    check_permutation_vs_oracle(cfg, B=64, stride=9, seed=alpha)
 
 
 @pytest.mark.parametrize("fs", [TINY13, TINY_U15], ids=["tiny13", "tiny_u15"])
@@ -144,7 +77,7 @@ def test_xla_tier_parity_nonstandard_widths(fs):
     """The generic XLA tier (ops/montgomery.py) is limb-width-parameterized:
     its non-interleaved REDC normalizes between steps, so columns stay int32
     at 13-bit limbs (bound analysis in ``normalize``'s docstring)."""
-    from sponge_tpu.poseidon.permutation import batched_permute
+    from sponge_jax.poseidon.permutation import batched_permute
 
     cfg = tiny_poseidon_config(field=fs)
     rng = np.random.default_rng(5)
@@ -161,110 +94,3 @@ def test_xla_tier_parity_nonstandard_widths(fs):
         o.permute()
         got = [fs.mont_limbs_to_int(out[i][:, k]) % fs.modulus for i in range(cfg.t)]
         assert got == [v % fs.modulus for v in o.state], (fs.name, k)
-
-
-def test_family_kernels_reject_non_12bit():
-    """The six family kernels' bound analyses are 12-bit-plan-specific; a
-    13-bit field must fail loudly, not compute with a wrong limb mask."""
-    from sponge_tpu import get_default_poseidon2_parameters
-    from sponge_tpu.ops.pallas_p2 import p2_permute_fn
-
-    cfg = get_default_poseidon2_parameters(BLS12_381_FR_L13, 2)
-    with pytest.raises(ValueError, match="12-bit plan only"):
-        p2_permute_fn(cfg)
-
-
-# ---------------------------------------------------------------------------
-# Sparse-phase value-overflow protection (the round-5 fold fix).
-#
-# The optimized partial rounds never reduce elements 1..t-1 — their values
-# grow ~2p per round.  At the 12-bit plans the worst case stays below R
-# (564p headroom for BLS); at the 13-bit plan (R ~ 35p) it overflows, and
-# the relaxed norms silently drop the top carry: measured 25/64 random lanes
-# wrong on hardware at one seed before the fix.  _sparse_needs_fold gates a
-# half-range top-limb rho-fold that caps values at ~0.62 R.
-# ---------------------------------------------------------------------------
-
-DEEP13 = None  # built lazily: tiny13 with a deep partial phase
-
-
-def _deep13(partial_rounds=20):
-    return tiny_poseidon_config(field=TINY13, partial_rounds=partial_rounds)
-
-
-def test_sparse_fold_gating():
-    from sponge_tpu import (
-        BABYBEAR_FR,
-        GOLDILOCKS_FR,
-        KOALABEAR_FR,
-        MERSENNE31_FR,
-        get_default_poseidon_parameters,
-    )
-    from sponge_tpu.ops.pallas_cios import _sparse_needs_fold, _sparse_value_bound
-
-    def gate(fs, rate):
-        cfg = get_default_poseidon_parameters(fs, rate, False)
-        G = len(
-            _mds_groups(
-                fs.nlimbs, cfg.t, quasi=True, lb=fs.limb_bits,
-                unsigned=fs.unsigned_accum,
-            )
-        )
-        return _sparse_needs_fold(cfg, G), _sparse_value_bound(cfg, G), fs.r / fs.modulus
-
-    # 12-bit plans: deterministically below R -> no fold, traces unchanged.
-    for fs, rate in [
-        (BLS12_381_FR, 2), (BLS12_381_FR, 8), (GOLDILOCKS_FR, 8),
-        (BABYBEAR_FR, 8), (MERSENNE31_FR, 8),
-    ]:
-        fold, bound, ratio = gate(fs, rate)
-        assert not fold and bound < 0.98 * ratio, (fs.name, bound, ratio)
-    # The 13-bit plan and KoalaBear (alpha=3, 20 partial rounds at 32p
-    # headroom — a LATENT pre-existing hole the round-5 simulation surfaced)
-    # exceed their headroom: folds required.
-    for fs, rate in [(BLS12_381_FR_L13, 2), (BLS12_381_FR_L13, 8), (KOALABEAR_FR, 8)]:
-        fold, bound, ratio = gate(fs, rate)
-        assert fold and bound >= 0.98 * ratio, (fs.name, bound, ratio)
-
-
-def test_sparse_fold_is_load_bearing():
-    """Folds OFF must corrupt a deep-partial tiny13 run; folds ON must be
-    bit-exact — the discriminating pair that pins the round-5 hardware
-    failure class (top-carry drop past R) forever."""
-    import sponge_tpu.ops.pallas_cios as pc
-
-    cfg = _deep13()
-    fs = cfg.field
-    rng = np.random.default_rng(77)
-    B, lanes = 2048, 16
-    vals = [
-        [int(v) % fs.modulus for v in rng.integers(0, 1 << 62, size=lanes)]
-        + [0] * (B - lanes)
-        for _ in range(cfg.t)
-    ]
-    state = np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-
-    def run_and_count(**kw):
-        out = np.asarray(pc.cios_permute_fn(cfg, interpret=True, **kw)(state))
-        bad = 0
-        for k in range(lanes):
-            o = cfg.oracle_sponge()
-            o.state = [vals[i][k] for i in range(cfg.t)]
-            o.permute()
-            got = [
-                fs.mont_limbs_to_int(out[i][:, k]) % fs.modulus
-                for i in range(cfg.t)
-            ]
-            bad += got != [v % fs.modulus for v in o.state]
-        return bad
-
-    orig = pc._sparse_needs_fold
-    try:
-        pc._sparse_needs_fold = lambda cfg, G: False
-        pc.cios_permute_fn.cache_clear()
-        assert run_and_count() > 0, "deep-partial draws no longer overflow; deepen rp"
-    finally:
-        pc._sparse_needs_fold = orig
-        pc.cios_permute_fn.cache_clear()
-    assert run_and_count() == 0
-    assert run_and_count(relaxed=False) == 0

@@ -10,14 +10,14 @@ import pytest
 
 import jax.numpy as jnp
 
-from sponge_tpu import (
+from sponge_jax import (
     BABYBEAR_FR,
     GOLDILOCKS_FR as GL,
     KOALABEAR_FR as KB,
     MERSENNE31_FR as M31,
 )
-from sponge_tpu.fields import FieldSpec
-from sponge_tpu.monolith import (
+from sponge_jax.fields import FieldSpec
+from sponge_jax.monolith import (
     MonolithConfig,
     OracleMonolithSponge,
     bar_chunks,
@@ -27,7 +27,7 @@ from sponge_tpu.monolith import (
     get_default_monolith_parameters,
     monolith_permute_jit,
 )
-from sponge_tpu.monolith.config import check_bar_field
+from sponge_jax.monolith.config import check_bar_field
 
 CFG_GL = get_default_monolith_parameters(GL)
 CFG_M31 = get_default_monolith_parameters(M31)
@@ -65,7 +65,7 @@ def test_bar_safety_gate():
     for fs in (GL, M31, KB, BABYBEAR_FR):
         check_bar_field(fs)
     # A generic prime (d = 2^n + 1 - p not a power of two) is rejected.
-    from sponge_tpu import BLS12_381_FR
+    from sponge_jax import BLS12_381_FR
 
     with pytest.raises(ValueError, match="not a power of two"):
         check_bar_field(BLS12_381_FR)
@@ -138,7 +138,7 @@ def test_default_concrete_matrices():
     """Goldilocks: the MDS-verified pow2 circulant; 31-bit fields: the
     MDS-verified small-integer circulant (tools/check_mds.cc, seed 20230825)
     — invertible over each field, circulant-shaped, entries <= 31."""
-    from sponge_tpu.poseidon2.params import _det_mod_p
+    from sponge_jax.poseidon2.params import _det_mod_p
 
     row = (31, 19, 21, 11, 5, 7, 9, 26, 9, 16, 23, 13, 30, 30, 17, 5)
     for cfg in (CFG_M31, CFG_KB, CFG_BB):
@@ -206,9 +206,9 @@ def test_xla_tier_vs_oracle(cfg):
 def test_sponge_device_vs_oracle():
     """Full duplex sponge over Monolith on the batched device path, with a
     mode flip and a multi-chunk squeeze."""
-    from sponge_tpu import Batched
-    from sponge_tpu.absorb import Fp
-    from sponge_tpu.sponge import PoseidonSponge
+    from sponge_jax import Batched
+    from sponge_jax.absorb import Fp
+    from sponge_jax.sponge import PoseidonSponge
 
     cfg = CFG_M31
     fs = cfg.field
@@ -229,7 +229,7 @@ def test_sponge_device_vs_oracle():
 
 def test_hash_over_monolith():
     """The config-agnostic batched hash layer runs over the Monolith hook."""
-    from sponge_tpu.hash import hash_elements
+    from sponge_jax.hash import hash_elements
 
     cfg = CFG_KB
     fs = cfg.field
@@ -268,91 +268,21 @@ def test_tiny_field_structural():
 
 
 # ---------------------------------------------------------------------------
-# Fused Pallas kernel body (CPU: exact kernel function via mock refs — covers
-# all kernel plumbing except Mosaic lowering; the TPU probe's parity gate
-# covers that).
+# XLA tier at the geometries a fused kernel would have to cover: the dense
+# (Cauchy) Concrete over a non-Mersenne and a Mersenne 31-bit field, and a
+# 2-limb bar-safe tiny field.
 # ---------------------------------------------------------------------------
 
 
-def _run_monolith_kernel_body(cfg, B=256, stride=83, lane_streams=2):
-    import jax
-
-    from sponge_tpu.ops import pallas_monolith as pm
-
-    class FakeRef:
-        def __init__(self, arr):
-            self.arr = jnp.asarray(arr)
-
-        def __getitem__(self, idx):
-            return self.arr[idx]
-
-        def __setitem__(self, idx, value):
-            self.arr = self.arr.at[idx].set(value)
-
-    fs = cfg.field
-    L, t = fs.nlimbs, cfg.t
-    vals = [rand_elems(fs, B, seed=7 + i) for i in range(t)]
-    vals[0][0] = 0
-    vals[1][1] = fs.modulus - 1
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(r) for r in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    rc_np = pm.monolith_rc_plane(cfg)
-
-    @jax.jit
-    def run(rc, st):
-        out_ref = FakeRef(jnp.zeros_like(st))
-        pm._monolith_kernel(
-            FakeRef(rc), FakeRef(st), out_ref, cfg=cfg, lane_streams=lane_streams
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, st4)).reshape(t, L, B)
-    for b in range(0, B, stride):
-        o = OracleMonolithSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert got == o.state, b
-        raw = [fs.limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert all(v < 2 * fs.modulus for v in raw), "output < 2p invariant"
-
-
 @pytest.mark.parametrize(
-    "cfg", [CFG_GL, CFG_M31, CFG_KB, CFG_BB], ids=lambda c: c.field.name
+    "fs", [KB, M31, FieldSpec(name="tiny_m13", modulus=(1 << 13) - 1, generator=17)],
+    ids=lambda f: f.name,
 )
-def test_kernel_body_vs_oracle(cfg):
-    """Both Concrete paths (pow2 shifts on Goldilocks, Cauchy lazy-REDC on
-    the 31-bit fields), 2 lane streams, adversarial lanes."""
-    _run_monolith_kernel_body(cfg)
+def test_xla_tier_dense_concrete_vs_oracle(fs):
+    from conftest import check_permutation_vs_oracle
 
-
-def test_kernel_body_single_stream_and_bounds():
-    from sponge_tpu.ops.pallas_monolith import check_kernel_bounds
-
-    _run_monolith_kernel_body(CFG_GL, lane_streams=1)
-    # The scaled-Concrete paths produce bounds near R, so downstream sites
-    # carry static rho-folds; a generic-path Cauchy (dense) config stays
-    # < ~8p (0 folds).  Mersenne-prime fields route to the canonical-domain
-    # kernel, whose shift-fold sites always carry folds.
-    assert check_kernel_bounds(CFG_GL)["folds"]["conc"] >= 1
-    dense_kb = generate_monolith_parameters(KB, rate=2, capacity=2, rounds=6, bars=2)
-    assert check_kernel_bounds(dense_kb)["rot"] is None
-    assert check_kernel_bounds(dense_kb)["folds"] == {
-        "rc": 0, "sq": 0, "add": 0, "conc": 0,
-    }
-    dense_m31 = generate_monolith_parameters(M31, rate=2, capacity=2, rounds=6, bars=2)
-    assert check_kernel_bounds(dense_m31)["rot"] == 5
-    assert check_kernel_bounds(dense_m31)["folds"] == {
-        "sq": 1, "add": 1, "conc": 2, "rc": 1,
-    }
-    _run_monolith_kernel_body(dense_m31, lane_streams=1, stride=29)
-
-
-def test_kernel_body_tiny_field():
-    fs = FieldSpec(name="tiny_m13", modulus=(1 << 13) - 1, generator=17)
     cfg = generate_monolith_parameters(fs, rate=2, capacity=2, rounds=6, bars=2)
-    _run_monolith_kernel_body(cfg, lane_streams=1, stride=29)
+    check_permutation_vs_oracle(cfg, B=64, stride=5)
 
 
 def test_sharded_monolith_matches_local():
@@ -360,7 +290,7 @@ def test_sharded_monolith_matches_local():
     8-device mesh, bit-identical to the local XLA tier."""
     import jax
 
-    from sponge_tpu.parallel import make_mesh, sharded_permute_fn
+    from sponge_jax.parallel import make_mesh, sharded_permute_fn
 
     cfg = CFG_KB
     fs = cfg.field
@@ -379,7 +309,7 @@ def test_sharded_monolith_matches_local():
 
 def test_goldilocks_t8_paper_geometry():
     """The paper's second Monolith-64 geometry (t=8, u=4) as a rate-4
-    default, with the MDS-verified t=8 small circulant; kernel body + oracle
+    default, with the MDS-verified t=8 small circulant; XLA tier + oracle
     golden vector pinned."""
     cfg = get_default_monolith_parameters(GL, rate=4)
     assert (cfg.t, cfg.bars, cfg.rounds, cfg.capacity) == (8, 4, 6, 4)
@@ -391,19 +321,6 @@ def test_goldilocks_t8_paper_geometry():
         3013020673448842056,
         17604359482555244088,
     ]
-    _run_monolith_kernel_body(cfg, stride=85)
+    from conftest import check_permutation_vs_oracle
 
-
-def test_mersenne_rotation_path_active():
-    """Over Mersenne primes the Montgomery form is a bit-rotation of the
-    canonical value, so the kernel runs the whole permutation REDC-free in
-    the canonical domain (rotations at the boundary); other fields take the
-    generic Montgomery-domain kernel."""
-    from sponge_tpu.ops.pallas_monolith import check_kernel_bounds, mersenne_rot_shift
-
-    assert mersenne_rot_shift(M31) == 5  # 2^36 mod (2^31 - 1) = 2^5
-    assert check_kernel_bounds(CFG_M31)["rot"] == 5
-    assert mersenne_rot_shift(KB) is None  # not a Mersenne prime
-    assert mersenne_rot_shift(GL) is None
-    fs = FieldSpec(name="tiny_m13", modulus=(1 << 13) - 1, generator=17)
-    assert mersenne_rot_shift(fs) == 11  # 2^24 mod (2^13 - 1) = 2^11
+    check_permutation_vs_oracle(cfg, B=128, stride=17)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from sponge_tpu.fields import BLS12_381_FR, BN254_FR
-from sponge_tpu.utils.native import (
+from sponge_jax.fields import BLS12_381_FR, BN254_FR
+from sponge_jax.utils.native import (
     decode_mont_plane_native,
     encode_mont_plane_native,
     get_lib,

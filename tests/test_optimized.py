@@ -1,21 +1,16 @@
 """Optimized (sparse-MDS) partial-round schedule: exact equivalence tests.
 
 The decomposition is an algebraic identity — outputs must be bit-identical to
-the naive partial-round chain for every config.  Covers the host derivation and
-the kernel's limb-list helpers; the fused TPU kernel is cross-checked against
-the oracle on hardware (see bench/BENCHMARKS.md).
+the naive partial-round chain for every config.  The native host runtime
+runs this schedule (tests/test_host_runtime.py checks it end to end).
 """
 
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
-
-from sponge_tpu import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
-from sponge_tpu.ops import montgomery as mont
-from sponge_tpu.ops.pallas_cios import _mds_apply, _norm1, _pow_alpha, _sparse_apply
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.poseidon.optimized import (
+from sponge_jax import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.poseidon.optimized import (
     eval_partial_chain_optimized,
     optimized_partial_layers,
 )
@@ -41,7 +36,11 @@ def naive_partial_chain(cfg, state):
         (BLS12_381_FR, 3, False),
         (BLS12_381_FR, 8, False),
         (BLS12_381_FR, 2, True),
+        (BLS12_381_FR, 4, False),
+        (BLS12_381_FR, 5, True),
+        (BN254_FR, 2, False),
         (BN254_FR, 3, False),
+        (BN254_FR, 4, False),
     ],
     ids=lambda v: getattr(v, "name", str(v)),
 )
@@ -55,52 +54,6 @@ def test_host_derivation_exact(fs, rate, weights):
         assert eval_partial_chain_optimized(cfg, state) == naive_partial_chain(
             cfg, state
         )
-
-
-def test_kernel_helpers_optimized_phase():
-    """The exact helper sequence the Pallas kernel runs, on CPU limb lists."""
-    fs = BLS12_381_FR
-    cfg = get_default_poseidon_parameters(fs, 2, False)
-    L, t = fs.nlimbs, cfg.t
-    fc = mont.field_consts(fs)
-    p_t, n0 = fc["p_tuple"], int(fc["n0inv"])
-    layers = optimized_partial_layers(cfg)
-    B = 4
-    states = [
-        [int(RNG.integers(0, 2 ** 63)) ** 4 % fs.modulus for _ in range(B)]
-        for _ in range(t)
-    ]
-
-    def to_ll(row):
-        plane = fs.ints_to_mont_plane(row)
-        return [jnp.asarray(plane[l : l + 1, :]) for l in range(L)]
-
-    def ml(v):
-        return [int(x) for x in fs.int_to_mont_limbs(v)]
-
-    elems = [to_ll(states[e]) for e in range(t)]
-    half = cfg.full_rounds // 2
-    for e in range(t):
-        ark = ml(cfg.ark[half][e])
-        elems[e] = _norm1([elems[e][l] + ark[l] for l in range(L)])
-    elems[0] = _pow_alpha(L, elems[0], cfg.alpha, p_t, n0)
-    for c, sp in zip(layers.constants, layers.sparse):
-        for e in range(t):
-            cl = ml(c[e])
-            elems[e] = _norm1([elems[e][l] + cl[l] for l in range(L)])
-        elems = _sparse_apply(
-            L, t, elems, [ml(v) for v in sp.row0], [ml(v) for v in sp.col0], p_t, n0
-        )
-        elems[0] = _pow_alpha(L, elems[0], cfg.alpha, p_t, n0)
-    d_ints = tuple(tuple(tuple(ml(cc)) for cc in row) for row in layers.dense)
-    elems = [_norm1(x) for x in elems]
-    elems = _mds_apply(L, t, elems, d_ints, p_t, n0)
-
-    for b in range(B):
-        want = naive_partial_chain(cfg, [states[e][b] for e in range(t)])
-        for e in range(t):
-            plane = np.concatenate([np.asarray(x) for x in elems[e]], axis=0)
-            assert fs.mont_limbs_to_int(plane[:, b]) == want[e]
 
 
 def test_sparse_factor_shapes():

@@ -10,17 +10,17 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import PartitionSpec as P
 
-from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-from sponge_tpu.hash import compress_pairs, merkle_root
-from sponge_tpu.parallel import (
+from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+from sponge_jax.hash import compress_pairs, merkle_root
+from sponge_jax.parallel import (
     DATA_AXIS,
     leaf_sharding,
     make_mesh,
     sharded_merkle_root,
     sharded_transcript_fn,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.transcript import Absorb, SqueezeNative, transcript_shape
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.transcript import Absorb, SqueezeNative, transcript_shape
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)
@@ -80,7 +80,7 @@ def test_merkle_checkpoint_across_mesh_sizes(tmp_path):
     """A Merkle level produced under an 8-device sharded layer checkpoints and
     resumes on a DIFFERENT device count (4-device mesh and single device),
     all agreeing with the never-interrupted single-device root."""
-    from sponge_tpu.checkpoint import load_merkle_level, save_merkle_level
+    from sponge_jax.checkpoint import load_merkle_level, save_merkle_level
 
     N = 64
     vals = rand_fr(N)

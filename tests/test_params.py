@@ -7,8 +7,8 @@ Vectors transcribed from:
 
 import pytest
 
-from sponge_tpu.fields import BLS12_381_FR
-from sponge_tpu.poseidon.params import (
+from sponge_jax.fields import BLS12_381_FR
+from sponge_jax.poseidon.params import (
     PoseidonGrainLFSR,
     get_default_poseidon_parameters,
 )
@@ -102,7 +102,7 @@ def test_register_default_table():
     any field may implement PoseidonDefaultConfig, traits.rs:43-66)."""
     from conftest import TINY_FR_45
 
-    from sponge_tpu.poseidon.params import register_default_table
+    from sponge_jax.poseidon.params import register_default_table
 
     # A never-registered field has no defaults...
     with pytest.raises(KeyError):

@@ -3,7 +3,7 @@ gadget registry, and curve-point gadget vs native codec agreement."""
 
 import numpy as np
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     BN254_FR,
     Fp,
@@ -12,8 +12,8 @@ from sponge_tpu import (
     get_default_poseidon_parameters,
     to_sponge_field_elements,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.tracer import (
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.tracer import (
     Boolean,
     ConstraintSystem,
     FpVar,
@@ -88,7 +88,7 @@ def test_point_gadget_matches_native_codec():
 def test_field_element_size_sum():
     """FieldElementSize::sum (lib.rs:54-58): every size contributes num_bits
     (= MODULUS_BIT_SIZE - 1, incl. the Truncated quirk)."""
-    from sponge_tpu import BLS12_381_FR, FULL, Truncated, field_element_size_sum
+    from sponge_jax import BLS12_381_FR, FULL, Truncated, field_element_size_sum
 
     per = BLS12_381_FR.modulus_bit_size - 1
     assert field_element_size_sum([FULL] * 3, BLS12_381_FR) == 3 * per

@@ -16,7 +16,7 @@ import pytest
 import jax.numpy as jnp
 
 from conftest import TINY_FR, tiny_poseidon2_config
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     OraclePoseidon2Sponge,
     Poseidon2Config,
@@ -24,8 +24,8 @@ from sponge_tpu import (
     generate_poseidon2_parameters,
     get_default_poseidon2_parameters,
 )
-from sponge_tpu.poseidon2.params import external_matrix, internal_diag
-from sponge_tpu.poseidon2.permutation import poseidon2_permute_jit
+from sponge_jax.poseidon2.params import external_matrix, internal_diag
+from sponge_jax.poseidon2.permutation import poseidon2_permute_jit
 
 
 def rand_ints(fs, n, seed=20260817):
@@ -141,115 +141,25 @@ def test_xla_tier_bls_default():
 
 
 # ---------------------------------------------------------------------------
-# Pallas kernel body (tiny field, exact kernel function with mock refs — the
-# same CI pattern as test_pallas_kernels._run_cios_kernel_body).
+# XLA tier over the tiny field: the shapes a fused kernel would have to
+# cover (deep internal chains into the rho-folding regime, alpha = 17, the
+# Montgomery-form diagonal at t = 4).
 # ---------------------------------------------------------------------------
 
 
-class _FakeRef:
-    def __init__(self, arr):
-        self.arr = jnp.asarray(arr)
+@pytest.mark.parametrize(
+    "kw",
+    [
+        dict(partial_rounds=8),
+        dict(rate=2, alpha=17, full_rounds=4, partial_rounds=8),
+        dict(rate=3, alpha=5, full_rounds=4, partial_rounds=6),
+    ],
+    ids=["small-diag-rp8", "alpha17", "montgomery-diag"],
+)
+def test_xla_tier_tiny_configs(kw):
+    from conftest import check_permutation_vs_oracle
 
-    def __getitem__(self, idx):
-        return self.arr[idx]
-
-    def __setitem__(self, idx, value):
-        self.arr = self.arr.at[idx].set(value)
-
-
-def _run_p2_kernel_body(cfg, B=256, stride=29, lane_streams=1):
-    import jax
-
-    from sponge_tpu.ops import pallas_p2 as pp
-
-    fs = cfg.field
-    L, t = fs.nlimbs, cfg.t
-    vals = [rand_ints(fs, B, seed=100 + t + lane_streams) for _ in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-
-    ext_np = np.stack(
-        [
-            np.concatenate([fs.int_to_mont_limbs(c) for c in row])
-            for row in cfg.external_rc
-        ]
-    ).astype(np.int32)
-    int_np = np.stack(
-        [fs.int_to_mont_limbs(c) for c in cfg.internal_rc]
-    ).astype(np.int32)
-
-    @jax.jit
-    def run(ext, internal, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pp._p2_kernel(
-            _FakeRef(ext), _FakeRef(internal), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=lane_streams,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(ext_np, int_np, st4)).reshape(t, L, B)
-
-    fold_exercised = False
-    for b in range(0, B, stride):
-        o = OraclePoseidon2Sponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert got == o.state, b
-        fold_exercised = True
-    assert fold_exercised
-    # Output invariant: RAW limb values < 2p (required by the sponge's
-    # absorb-add and from_mont downstream; must be checked on the undecoded
-    # limbs — mont_limbs_to_int already reduces mod p).
-    for i in range(t):
-        for b in range(0, B, stride):
-            assert fs.limbs_to_int(out[i][:, b]) < 2 * fs.modulus
-
-
-def test_p2_kernel_body_tiny_small_diag():
-    """t=3 (small diagonal, multiplication-free internal layer); 8 internal
-    rounds drive values into the rho-folding regime."""
-    _run_p2_kernel_body(tiny_poseidon2_config(partial_rounds=8))
-
-
-def test_p2_kernel_body_tiny_alpha17():
-    _run_p2_kernel_body(
-        tiny_poseidon2_config(rate=2, alpha=17, full_rounds=4, partial_rounds=8)
-    )
-
-
-def test_p2_kernel_body_tiny_montgomery_diag():
-    cfg = tiny_poseidon2_config(rate=3, alpha=5, full_rounds=4, partial_rounds=6)
-    _run_p2_kernel_body(cfg)
-
-
-def test_p2_kernel_body_lane_streams():
-    _run_p2_kernel_body(
-        tiny_poseidon2_config(alpha=17, partial_rounds=8), lane_streams=2
-    )
-
-
-def test_p2_kernel_interpret_tiny():
-    """Full pallas_call through the interpreter (block specs, SMEM plumbing)."""
-    from sponge_tpu.ops.pallas_p2 import p2_permute_fn
-
-    cfg = tiny_poseidon2_config(partial_rounds=6)
-    fs = cfg.field
-    B = 8 * 128
-    vals = [rand_ints(fs, B, seed=55) for _ in range(cfg.t)]
-    state = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    )
-    out = np.asarray(
-        p2_permute_fn(cfg, interpret=True, sublanes=8, lane_streams=1)(state)
-    )
-    for b in range(0, B, 173):
-        o = OraclePoseidon2Sponge(cfg)
-        o.state = [vals[i][b] for i in range(cfg.t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(cfg.t)]
-        assert got == o.state, b
+    check_permutation_vs_oracle(tiny_poseidon2_config(**kw), B=128, stride=29)
 
 
 # ---------------------------------------------------------------------------
@@ -263,7 +173,7 @@ def test_batched_sponge_matches_oracle():
     dev = PoseidonSponge(cfg, batch_size=B)
     oracles = [OraclePoseidon2Sponge(cfg) for _ in range(B)]
 
-    from sponge_tpu import Batched, Fp
+    from sponge_jax import Batched, Fp
 
     lanes = [[i + 1, 7 * i + 2, 3] for i in range(B)]
     dev.absorb(Batched(lanes=[[Fp(v, TINY_FR) for v in lane] for lane in lanes]))
@@ -309,7 +219,7 @@ def test_sponge_state_roundtrip():
 def test_compiled_transcript_poseidon2():
     import jax.numpy as jnp
 
-    from sponge_tpu.transcript import Absorb, SqueezeNative, compile_transcript
+    from sponge_jax.transcript import Absorb, SqueezeNative, compile_transcript
 
     cfg = tiny_poseidon2_config()
     fs = cfg.field
@@ -333,7 +243,7 @@ def test_compiled_transcript_poseidon2():
 def test_merkle_root_poseidon2():
     import jax.numpy as jnp
 
-    from sponge_tpu.hash import merkle_root
+    from sponge_jax.hash import merkle_root
 
     cfg = tiny_poseidon2_config()
     fs = cfg.field
@@ -358,14 +268,14 @@ def test_merkle_root_poseidon2():
 
 
 def test_lazy_sponge_poseidon2():
-    from sponge_tpu import LazyPoseidonSponge
+    from sponge_jax import LazyPoseidonSponge
 
     cfg = tiny_poseidon2_config()
     B = 3
     lazy = LazyPoseidonSponge(cfg, batch_size=B)
     oracles = [OraclePoseidon2Sponge(cfg) for _ in range(B)]
     lanes = [[b + 1, 5 * b + 2] for b in range(B)]
-    from sponge_tpu import Batched, Fp
+    from sponge_jax import Batched, Fp
 
     lazy.absorb(Batched(lanes=[[Fp(v, TINY_FR) for v in lane] for lane in lanes]))
     for o, lane in zip(oracles, lanes):
@@ -376,8 +286,8 @@ def test_lazy_sponge_poseidon2():
 
 
 def test_checkpoint_roundtrip_poseidon2(tmp_path):
-    from sponge_tpu import Batched, Fp
-    from sponge_tpu.checkpoint import load_sponge, save_sponge
+    from sponge_jax import Batched, Fp
+    from sponge_jax.checkpoint import load_sponge, save_sponge
 
     cfg = tiny_poseidon2_config()
     s = PoseidonSponge(cfg, batch_size=2)
@@ -409,7 +319,7 @@ def test_oracle_golden_regression_bls():
 
 def test_default_parameters_other_fields():
     """BN254 / BLS12-377 default tables also drive Poseidon2 generation."""
-    from sponge_tpu import BLS12_377_FR, BN254_FR
+    from sponge_jax import BLS12_377_FR, BN254_FR
 
     for fs in (BN254_FR, BLS12_377_FR):
         cfg = get_default_poseidon2_parameters(fs, 2)
@@ -421,7 +331,7 @@ def test_minimum_headroom_wide_state_matches_oracle():
     field (44-bit prime, R/p ~ 16) at t = 8, where the external row sums
     exceed R within one round.  The rho-folding discipline must stay exact
     (an earlier design raised here; the folding one must simply be right)."""
-    from sponge_tpu.fields import FieldSpec
+    from sponge_jax.fields import FieldSpec
 
     low_headroom = FieldSpec(
         name="low_headroom_44", modulus=(1 << 44) - 17, generator=3

@@ -4,9 +4,9 @@ import numpy as np
 
 import jax
 
-from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-from sponge_tpu.parallel.multihost import global_mesh, initialize, scaling_report
-from sponge_tpu.utils.profiling import ThroughputMeter, op_counts, sbox_muls
+from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+from sponge_jax.parallel.multihost import global_mesh, initialize, scaling_report
+from sponge_jax.utils.profiling import ThroughputMeter, op_counts, sbox_muls
 
 
 CFG = get_default_poseidon_parameters(BLS12_381_FR, 2, False)
@@ -29,7 +29,7 @@ def test_op_counts():
 
 
 def test_throughput_meter():
-    from sponge_tpu.poseidon.permutation import permute_jit, zero_state
+    from sponge_jax.poseidon.permutation import permute_jit, zero_state
 
     meter = ThroughputMeter(reps=2)
     rate = meter.measure(permute_jit(CFG), zero_state(CFG, 16))
@@ -38,10 +38,10 @@ def test_throughput_meter():
 
 def test_kernel_op_census():
     """Exact jaxpr op census: element counts, scan trip multiplication, and
-    nested-jaxpr recursion (the measurement behind DESIGN §23's roofline)."""
+    nested-jaxpr recursion (the measurement behind DESIGN §7's roofline finding)."""
     import jax.numpy as jnp
 
-    from sponge_tpu.utils.profiling import kernel_op_census
+    from sponge_jax.utils.profiling import kernel_op_census
 
     shape = jax.ShapeDtypeStruct((4, 8), jnp.int32)
 
@@ -58,22 +58,21 @@ def test_kernel_op_census():
     c = kernel_op_census(scanned, shape)
     assert c["mul"] == 5 * 32
 
-    # the census sees through the CIOS kernel body (tiny field, CI-fast)
+    # the census sees through the XLA tier's round loops (tiny field)
     from conftest import tiny_poseidon_config
 
-    from sponge_tpu.ops.pallas_cios import TILE_LANES, cios_permute_fn
+    from sponge_jax.poseidon.permutation import permute_jit
 
     tcfg = tiny_poseidon_config()
+    B = 128
     census = kernel_op_census(
-        cios_permute_fn(tcfg),
-        jax.ShapeDtypeStruct(
-            (tcfg.t, tcfg.field.nlimbs, TILE_LANES), jnp.int32
-        ),
+        permute_jit(tcfg),
+        jax.ShapeDtypeStruct((tcfg.t, tcfg.field.nlimbs, B), jnp.int32),
     )
-    per_lane = {k: v / TILE_LANES for k, v in census.items()}
-    # L=3-limb schoolbook+REDC products x (sbox_apps*sbox_muls + MDS): the
-    # exact count is the kernel's to choose, but it must be in the hundreds
-    # per lane and integral (whole vector ops per lane).
+    per_lane = {k: v / B for k, v in census.items()}
+    # L=4-limb products x (sbox_apps*sbox_muls + MDS): the exact count is the
+    # tier's to choose, but it must be in the hundreds per lane and integral
+    # (whole vector ops per lane).
     assert 100 < per_lane["mul"] < 20000, per_lane
     assert per_lane["mul"] == int(per_lane["mul"])
 
@@ -96,7 +95,7 @@ def test_scaling_report_parity_gate_refuses(monkeypatch):
     import pytest
     from conftest import tiny_poseidon_config
 
-    import sponge_tpu.parallel.sharded as sharded_mod
+    import sponge_jax.parallel.sharded as sharded_mod
 
     real = sharded_mod.sharded_permute_fn
 

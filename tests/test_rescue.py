@@ -13,20 +13,20 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR as FR,
     GOLDILOCKS_FR as GL,
     MERSENNE31_FR as M31,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.rescue import (
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.rescue import (
     OracleRescueSponge,
     RescueConfig,
     get_default_rescue_parameters,
     rescue_round_count,
     smallest_alpha,
 )
-from sponge_tpu.rescue.permutation import rescue_permute_jit
+from sponge_jax.rescue.permutation import rescue_permute_jit
 
 CFG = get_default_rescue_parameters(FR, 2)
 
@@ -102,9 +102,9 @@ def test_xla_tier_vs_oracle():
 def test_duplex_sponge_integration():
     """The shared batched duplex sponge runs a RescueConfig unmodified via
     the batched_permute dispatch hook (same plug-in path as Poseidon2)."""
-    from sponge_tpu import Batched
-    from sponge_tpu.absorb import Fp
-    from sponge_tpu.sponge import PoseidonSponge
+    from sponge_jax import Batched
+    from sponge_jax.absorb import Fp
+    from sponge_jax.sponge import PoseidonSponge
 
     B = 2
     lanes = [rand_fr(FR, 5, seed=50 + b) for b in range(B)]
@@ -135,9 +135,9 @@ def test_sharded_permute_matches_local():
     (VERDICT r2 item 6: Rescue crossing shard_map)."""
     import jax
 
-    from sponge_tpu import GOLDILOCKS_FR
-    from sponge_tpu.parallel import make_mesh, sharded_permute_fn
-    from sponge_tpu.poseidon.permutation import batched_permute
+    from sponge_jax import GOLDILOCKS_FR
+    from sponge_jax.parallel import make_mesh, sharded_permute_fn
+    from sponge_jax.poseidon.permutation import batched_permute
 
     fs = GOLDILOCKS_FR
     cfg = get_default_rescue_parameters(fs, 4)
@@ -156,182 +156,25 @@ def test_sharded_permute_matches_local():
     assert np.array_equal(out_sharded, out_local)
 
 
-# ---- fused Pallas kernel body (ops/pallas_rescue.py) ----
+# ---- XLA tier at small fields ----
 
-def _tiny_headroom_rescue_config(rate=2, rounds=4, seed=23):
-    """Rescue config over a 25-bit, 3-limb field whose R/p headroom (2^11)
-    admits the fused kernel's static value bound (the 35-bit conftest tiny
-    field has R/p = 2 — too tight for the kernel's lazy-MDS sums)."""
-    from sponge_tpu.fields import FieldSpec
-    from sponge_tpu.rescue.params import generate_rescue_parameters
+import pytest
+
+from conftest import check_permutation_vs_oracle
+
+
+def _tiny_rescue_config(rate=2, rounds=4):
+    """Rescue config over a 25-bit, 3-limb field (cheap to compile)."""
+    from sponge_jax.fields import FieldSpec
+    from sponge_jax.rescue.params import generate_rescue_parameters
 
     fs = FieldSpec(name="tiny_fr_25", modulus=(1 << 25) - 39, generator=3)
     return generate_rescue_parameters(fs, rate, rounds=rounds)
 
 
-def test_exponent_runs_schedule():
-    """The run-length decomposition reproduces the exponent exactly, for the
-    production inverse exponent and random odd/even cases."""
-    from sponge_tpu.ops.pallas_rescue import _exponent_runs
-
-    rng = np.random.default_rng(5)
-    exps = [CFG.inv_alpha, _tiny_headroom_rescue_config().inv_alpha] + [
-        int(v) | 1 for v in rng.integers(3, 1 << 60, size=8)
-    ] + [int(v) << 3 for v in rng.integers(3, 1 << 40, size=4)]
-    for e in exps:
-        runs, trailing = _exponent_runs(e)
-        acc = 1
-        for g in runs:
-            acc = (acc << g) | 1
-        acc <<= trailing
-        assert acc == e, e
-        # the ladder performs exactly nbits-1 squarings + popcount-1 muls
-        assert sum(runs) + trailing == e.bit_length() - 1
-        assert len(runs) == bin(e).count("1") - 1
-
-
-import pytest
-
-
-@pytest.mark.parametrize("relaxed", [False, True], ids=["exact", "relaxed"])
-@pytest.mark.parametrize("lane_streams", [1, 2], ids=["1stream", "2streams"])
-def test_rescue_kernel_body_vs_oracle(lane_streams, relaxed):
-    """The fused kernel body (mock refs, CPU) == the scalar oracle: run-length
-    inverse ladder, grouped lazy MDS, rc injection, exit canonicalization."""
-    import jax
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_rescue as pr
-
-    cfg = _tiny_headroom_rescue_config()
-    pr._check_kernel_value_bounds(cfg)
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=51 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    rc_np = np.stack(
-        [np.concatenate([fs.int_to_mont_limbs(c) for c in row]) for row in cfg.rc]
-    ).astype(np.int32)
-    runs, _ = pr._exponent_runs(cfg.inv_alpha)
-    runs_np = np.asarray(runs, dtype=np.int32)
-
-    @jax.jit
-    def run(rc, runs_arr, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pr._rescue_kernel(
-            _FakeRef(rc), _FakeRef(runs_arr), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=lane_streams, relaxed=relaxed,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, runs_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleRescueSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        got = [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)]
-        assert got == o.state, b
-        # exit contract: canonical limbs, value < 2p
-        for i in range(t):
-            assert fs.limbs_to_int(out[i][:, b]) < 2 * fs.modulus
-            assert all(int(v) < (1 << 12) for v in out[i][:, b])
-
-
-def test_rescue_kernel_value_gate():
-    """The static value-bound check admits every shipped default (FieldSpec's
-    +4-bit limb padding guarantees R >= 16p, under which the kernel's
-    round fixpoint provably converges — the check guards hypothetical future
-    limb layouts, see its docstring), and the mul-bound model itself raises
-    when an input could reach R."""
-    from sponge_tpu.ops.pallas_rescue import _check_kernel_value_bounds
-
-    for shipped in (
-        CFG,
-        get_default_rescue_parameters(M31, 8),
-        get_default_rescue_parameters(GL, 4),
-        _tiny_headroom_rescue_config(),
-    ):
-        _check_kernel_value_bounds(shipped)
-
-
-def test_rescue_kernel_pallas_call_interpret():
-    """rescue_permute_fn through pl.pallas_call in interpret mode: covers the
-    SMEM/VMEM block specs, grid tiling, and run-length SMEM plumbing that the
-    mock-ref body test bypasses."""
-    from sponge_tpu.ops.pallas_rescue import rescue_permute_fn
-
-    cfg = _tiny_headroom_rescue_config(rounds=2)
-    fs = cfg.field
-    t, B = cfg.t, 2048
-    vals = [rand_fr(fs, B, seed=71 + i) for i in range(t)]
-    state = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    )
-    out = np.asarray(rescue_permute_fn(cfg, interpret=True)(state))
-    for b in range(0, B, 511):
-        o = OracleRescueSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        assert [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)] == o.state
-
-
-def test_window_schedule():
-    """The fixed-window decomposition reproduces the exponent exactly: every
-    step is exactly w squarings + one digit multiply (digit 0 = the table's
-    Montgomery-one entry, a value-preserving multiply)."""
-    from sponge_tpu.ops.pallas_rescue import _window_schedule
-
-    rng = np.random.default_rng(17)
-    exps = [CFG.inv_alpha, _tiny_headroom_rescue_config().inv_alpha] + [
-        int(v) | 1 for v in rng.integers(3, 1 << 60, size=8)
-    ] + [int(v) << 2 for v in rng.integers(17, 1 << 40, size=4)]
-    for w in (2, 3, 4, 5):
-        for e in exps:
-            lead, digits = _window_schedule(e, w)
-            assert 1 <= lead < (1 << w)  # leading window starts with the MSB
-            acc = lead
-            for d in digits:
-                assert 0 <= d < (1 << w), (e, w)
-                acc = (acc << w) + d
-            assert acc == e, (e, w)
-
-
-@pytest.mark.parametrize("window", [2, 4])
-def test_rescue_kernel_body_window_ladder(window):
-    """The sliding-window ladder (odd-power table, dynamic VMEM index) is
-    oracle bit-exact — same harness as the run-length cells."""
-    import jax
-
-    from test_pallas_kernels import _FakeRef
-    from sponge_tpu.ops import pallas_rescue as pr
-
-    cfg = _tiny_headroom_rescue_config()
-    fs = cfg.field
-    t, L, B = cfg.t, fs.nlimbs, 256
-    vals = [rand_fr(fs, B, seed=131 + i) for i in range(t)]
-    st4 = jnp.asarray(
-        np.stack([fs.ints_to_mont_plane(row) for row in vals], axis=0)
-    ).reshape(t, L, B // 128, 128)
-    rc_np = np.stack(
-        [np.concatenate([fs.int_to_mont_limbs(c) for c in row]) for row in cfg.rc]
-    ).astype(np.int32)
-    _lead, digits = pr._window_schedule(cfg.inv_alpha, window)
-    sched_np = np.asarray(digits, dtype=np.int32)
-
-    @jax.jit
-    def run(rc, sched, st):
-        out_ref = _FakeRef(jnp.zeros_like(st))
-        pr._rescue_kernel(
-            _FakeRef(rc), _FakeRef(sched), _FakeRef(st), out_ref,
-            cfg=cfg, lane_streams=2, relaxed=True, ladder_window=window,
-        )
-        return out_ref.arr
-
-    out = np.asarray(run(rc_np, sched_np, st4)).reshape(t, L, B)
-    for b in range(0, B, 61):
-        o = OracleRescueSponge(cfg)
-        o.state = [vals[i][b] for i in range(t)]
-        o.permute()
-        assert [fs.mont_limbs_to_int(out[i][:, b]) for i in range(t)] == o.state
+@pytest.mark.parametrize("rounds", [2, 4], ids=["r2", "r4"])
+@pytest.mark.parametrize("rate", [1, 2, 3], ids=["rate1", "rate2", "rate3"])
+def test_xla_tier_tiny_field_vs_oracle(rate, rounds):
+    """The inverse-S-box ladder, MDS and round constants of the XLA tier
+    (the family's only device tier) at several widths."""
+    check_permutation_vs_oracle(_tiny_rescue_config(rate, rounds))

@@ -8,7 +8,7 @@ quirk paths flagged in SURVEY.md §2.1/§3.2.
 import numpy as np
 import pytest
 
-from sponge_tpu import (
+from sponge_jax import (
     BLS12_381_FR,
     BN254_FR,
     FULL,
@@ -17,8 +17,8 @@ from sponge_tpu import (
     Truncated,
     get_default_poseidon_parameters,
 )
-from sponge_tpu.absorb import Fp, U8
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.absorb import Fp, U8
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)
@@ -226,8 +226,8 @@ def test_absorb_stream_matches_monolithic():
     import numpy as np
 
     from conftest import TINY_FR, tiny_poseidon_config
-    from sponge_tpu import Fp, PoseidonSponge
-    from sponge_tpu.sponge import encode_ints_plane
+    from sponge_jax import Fp, PoseidonSponge
+    from sponge_jax.sponge import encode_ints_plane
 
     cfg = tiny_poseidon_config()
     B = 2

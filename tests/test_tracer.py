@@ -8,10 +8,10 @@ ark-relations.
 
 import numpy as np
 
-from sponge_tpu import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
-from sponge_tpu.absorb import Fp, Some, NONE, U8, to_sponge_bytes, to_sponge_field_elements
-from sponge_tpu.poseidon.oracle import FULL, OraclePoseidonSponge
-from sponge_tpu.tracer import (
+from sponge_jax import BLS12_381_FR, BN254_FR, get_default_poseidon_parameters
+from sponge_jax.absorb import Fp, Some, NONE, U8, to_sponge_bytes, to_sponge_field_elements
+from sponge_jax.poseidon.oracle import FULL, OraclePoseidonSponge
+from sponge_jax.tracer import (
     Boolean,
     ConstraintSystem,
     FpVar,
@@ -143,7 +143,7 @@ def test_nonnative_limb_geometry_matches_ark():
     # Consume the squeeze, then measure ONLY the limb-packing accounting.
     per = BN254_FR.modulus_bit_size - 1
     bits = var_sponge.squeeze_bits(2 * per)
-    from sponge_tpu.tracer import bits_le_to_nonnative
+    from sponge_jax.tracer import bits_le_to_nonnative
 
     base_w, base_c = cs.num_witness_variables, cs.num_constraints
     gadgets = bits_le_to_nonnative(cs, [bits[:per], bits[per:]], BN254_FR)
@@ -220,7 +220,7 @@ def test_gadget_macros_equivalence():
     """absorb_gadget! / collect_sponge_field_elements_gadget! analogues
     (constraints/absorb.rs:201-223): sequential absorbs == one absorb of the
     collected encoding."""
-    from sponge_tpu.tracer import absorb_gadget, collect_sponge_field_elements_gadget
+    from sponge_jax.tracer import absorb_gadget, collect_sponge_field_elements_gadget
 
     vals = rand_fr(3)
     cs = ConstraintSystem(FR)

@@ -5,9 +5,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from sponge_tpu import BLS12_381_FR, get_default_poseidon_parameters
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge
-from sponge_tpu.transcript import Absorb, SqueezeNative, compile_transcript, transcript_shape
+from sponge_jax import BLS12_381_FR, get_default_poseidon_parameters
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge
+from sponge_jax.transcript import Absorb, SqueezeNative, compile_transcript, transcript_shape
 
 FR = BLS12_381_FR
 CFG = get_default_poseidon_parameters(FR, 2, False)

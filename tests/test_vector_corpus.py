@@ -17,7 +17,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent / "tools")
 
 from freeze_vectors import de_value, load_corpus  # noqa: E402
 
-from sponge_tpu import (  # noqa: E402
+from sponge_jax import (  # noqa: E402
     BLS12_381_FR,
     PoseidonSponge,
     get_default_poseidon_parameters,
@@ -25,7 +25,7 @@ from sponge_tpu import (  # noqa: E402
     to_sponge_bytes,
     to_sponge_field_elements,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge  # noqa: E402
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge  # noqa: E402
 
 FR = BLS12_381_FR
 CORPUS = load_corpus()
@@ -134,9 +134,9 @@ def test_rust_crosscheck_decomposition_reproduces_corpus():
     Absorb calls (flag+payload, len+payload, child concat).  Replay that exact
     decision tree here and assert it reproduces every frozen encoding, so the
     generated Rust's structural logic is validated even without a toolchain."""
-    from sponge_tpu import Fp, U8, Usize, get_field, to_sponge_bytes, to_sponge_field_elements
+    from sponge_jax import Fp, U8, Usize, get_field, to_sponge_bytes, to_sponge_field_elements
     from tools.freeze_vectors import de_value
-    from sponge_tpu.absorb import NONE, Some, WithLength, _absorb_length
+    from sponge_jax.absorb import NONE, Some, WithLength, _absorb_length
 
     FR = get_field("bls12_381_fr")
 

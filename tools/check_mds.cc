@@ -10,7 +10,7 @@
 // This is the native companion of tools/check_mds.py (same semantics; the
 // python version cross-checks this one on the Goldilocks t=12 row).  Used
 // offline to pin power-of-two circulant Concrete matrices for the Monolith
-// instances (sponge_tpu/monolith/params.py); results are recorded in
+// instances (sponge_jax/monolith/params.py); results are recorded in
 // docs/SECURITY.md.
 //
 // Build:  g++ -O2 -std=c++17 -pthread -o /tmp/check_mds tools/check_mds.cc

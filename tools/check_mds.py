@@ -7,7 +7,7 @@ sets, which dedupes the ~C(2t, t) minors by a factor ~t — enough to verify
 t = 12 exhaustively in pure Python in a few minutes.
 
 Used once, offline, to pin the power-of-two circulant Concrete matrix of the
-Monolith-64 instance (sponge_tpu/monolith/params.py); the verified first row
+Monolith-64 instance (sponge_jax/monolith/params.py); the verified first row
 and this script's output are recorded in docs/SECURITY.md.
 
 Run: python tools/check_mds.py

@@ -4,7 +4,7 @@ SURVEY.md §7.3 item 2 calls for a wide, *frozen* cross-checking corpus: mixed
 typed absorbs (bytes, bools, ints, signed ints, field elements, curve points,
 Options, WithLength, nested lists) interleaved with every squeeze flavor
 (native elements, bytes, bits, nonnative elements), with the exact outputs
-pinned as JSON.  The live oracle (sponge_tpu.poseidon.oracle) is itself anchored
+pinned as JSON.  The live oracle (sponge_jax.poseidon.oracle) is itself anchored
 to the three in-reference golden vectors; this corpus extends that anchor across
 the whole codec surface so future kernel/codec rewrites diff against *frozen*
 values rather than against code that may be rewritten alongside them.
@@ -29,7 +29,7 @@ import numpy as np
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent.parent))
 
-from sponge_tpu import (  # noqa: E402
+from sponge_jax import (  # noqa: E402
     BLS12_381_FR,
     BN254_FR,
     NONE,
@@ -50,7 +50,7 @@ from sponge_tpu import (  # noqa: E402
     to_sponge_bytes,
     to_sponge_field_elements,
 )
-from sponge_tpu.poseidon.oracle import OraclePoseidonSponge  # noqa: E402
+from sponge_jax.poseidon.oracle import OraclePoseidonSponge  # noqa: E402
 
 FR = BLS12_381_FR
 CORPUS_PATH = pathlib.Path(__file__).resolve().parent.parent / "vectors" / "regression_corpus.json"
@@ -107,7 +107,7 @@ def ser_value(v):
 
 
 def de_value(d):
-    from sponge_tpu import get_field
+    from sponge_jax import get_field
 
     t = d["t"]
     if t == "u8":

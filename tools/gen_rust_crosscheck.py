@@ -33,7 +33,7 @@ CARGO_TOML = """\
 # Generated by tools/gen_rust_crosscheck.py — external cross-check harness for
 # vectors/regression_corpus.json.  Requires network access for crates.io.
 [package]
-name = "sponge-tpu-crosscheck"
+name = "sponge-jax-crosscheck"
 version = "0.1.0"
 edition = "2021"
 publish = false
